@@ -4,10 +4,14 @@ The counterpart of ``benchmark_spmv_using_csr5_tpu/bench/cli.py`` with the
 same arguments (``cli.py:56-104``):
 
     cli.py matrix.mtx [--sigma N] [--num-run N] [--backend auto|cuda|torch]
-    cli.py --synthetic banded:500000:27
+           [--format csr5|dia|hyb|auto] [--reorder none|rcm|auto] [--spmm K]
+    cli.py --synthetic banded:500000:27 --format auto
 
-Only the CSR5 SpMV path runs (``--format csr5``, ``--spmm 1``, float32
-values). Every other choice raises with the ROADMAP item that ports it.
+Float32 values run through CSR5 SpMV (K1), DIA SpMV (K5) and SpMM (K6,
+``--format dia --spmm K``), and HYB5 SpMV (K5 + K1). ``--format auto``
+picks the format from the structure (``ops/select.py``); ``--reorder``
+applies RCM first. Every other choice raises with the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -16,22 +20,25 @@ import argparse
 import sys
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..config import AUTO_TUNED_SIGMA
-from ..utils import mmio, synth
-from .harness import BenchResult, run_benchmark
+from ..ops.select import apply_plan, select_format, select_plan
+from ..utils import mmio, reorder, synth
+from . import harness
+from .harness import BenchResult
 
 #: arguments the port does not run yet -> the ROADMAP item that ports them
 NOT_PORTED = {
     "float64": "--dtype float64 is kernel K4 (ROADMAP queue 1 item 7)",
-    "spmm": "--spmm K>1 is kernel K2 (ROADMAP queue 1 item 8)",
-    "dia": "--format dia is kernels K5/K6 (ROADMAP queue 1 item 9)",
-    "hyb": "--format hyb is ops/hyb.py over K5 and K1 (ROADMAP queue 1 item 9)",
+    "spmm": "--spmm K>1 with --format csr5 is kernel K2 (ROADMAP queue 1 item 8)",
+    "spmm_hyb": "--spmm K>1 with --format hyb is hyb_spmm, whose CSR5 part is "
+    "kernel K2 (ROADMAP queue 1 item 8)",
+    "spmm_auto": "--spmm K>1 with --format auto picks bandblock (kernel K7) or "
+    "csr5 (kernel K2) (ROADMAP queue 1 item 8)",
     "bandblock": "--format bandblock is kernel K7 (ROADMAP queue 1 item 8)",
-    "auto": "--format auto is ops/select.py (ROADMAP queue 1 item 9)",
     "autotune": "--autotune is the autotuned build (ROADMAP queue 1 item 2)",
-    "reorder": "--reorder is ops/select.py with RCM (ROADMAP queue 1 item 9)",
 }
 
 
@@ -93,25 +100,68 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(argv=None) -> BenchResult:
-    """Parse ``argv``, load the matrix and benchmark it."""
-    args = parse_args(argv)
+def _refuse_unported(args) -> None:
+    spmm_key = {"csr5": "spmm", "hyb": "spmm_hyb", "auto": "spmm_auto"}.get(args.format)
     for chosen, key in (
         (args.dtype == "float64", "float64"),
-        (args.spmm != 1, "spmm"),
-        (args.format != "csr5", args.format),
+        (args.format == "bandblock", "bandblock"),
+        (args.spmm != 1 and spmm_key is not None, spmm_key),
         (args.autotune, "autotune"),
-        (args.reorder != "none", "reorder"),
     ):
         if chosen:
             raise NotImplementedError(f"not ported yet: {NOT_PORTED[key]}")
+
+
+def run(argv=None) -> BenchResult:
+    """Parse ``argv``, load the matrix and benchmark it."""
+    args = parse_args(argv)
     if args.backend == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--backend cuda: no CUDA device is available")
-    device = {"auto": None, "cuda": "cuda", "torch": "cpu"}[args.backend]
     rp, ci, v, shape, name = load_matrix(args)
-    return run_benchmark(
-        name, rp, ci, v, shape, sigma=args.sigma, num_run=args.num_run, device=device
-    )
+    return run_matrix(args, name, rp, ci, v, shape)
+
+
+def run_matrix(args, name, rp, ci, v, shape) -> BenchResult:
+    """Reorder, pick the format and benchmark a loaded matrix given as
+    ``(rp, ci, v, shape)``: the part of the JAX ``main`` after
+    ``load_matrix`` (``cli.py:106-168``). ``args`` is what
+    :func:`parse_args` returns."""
+    _refuse_unported(args)
+    device = {"auto": None, "cuda": "cuda", "torch": "cpu"}[args.backend]
+    notes = []
+    if args.reorder == "auto":
+        if shape[0] == shape[1]:
+            plan = select_plan(rp, ci, shape)
+            if plan.reorder is not None:
+                (rp, ci, v, shape), _ = apply_plan((rp, ci, v, shape), plan)
+                name = f"{name}+{plan.reorder}"
+                notes.append(
+                    f"auto-reorder: bandwidth {plan.bandwidth_before} -> "
+                    f"{plan.bandwidth_after} ({plan.plan_ms:.0f} ms)"
+                )
+    elif args.reorder != "none":
+        if shape[0] != shape[1]:
+            raise SystemExit("--reorder requires a square matrix")
+        a_perm, _ = reorder.reorder_for_locality(
+            sp.csr_matrix((v, ci, rp), shape=shape), method=args.reorder
+        )
+        rp, ci, v = a_perm.indptr, a_perm.indices, a_perm.data
+        name = f"{name}+{args.reorder}"
+    fmt = args.format
+    if fmt == "auto":
+        fmt = select_format(rp, ci, shape)
+        notes.append(f"auto-selected format: {fmt}")
+    if fmt == "dia":
+        R = max(args.spmm, 1)
+        res = harness.run_dia(name, rp, ci, v, shape, R, num_run=args.num_run, device=device)
+    elif fmt == "hyb":
+        res = harness.run_hyb(name, rp, ci, v, shape, num_run=args.num_run, device=device)
+    else:
+        res = harness.run_benchmark(
+            name, rp, ci, v, shape, sigma=args.sigma, num_run=args.num_run, device=device
+        )
+    res.plan = "; ".join(notes)
+    return res
 
 
 def main(argv=None) -> int:

@@ -7,7 +7,9 @@ flax pytrees, the port stores plain dataclasses; all tensors of a matrix
 live on one device.
 
 :func:`csr5_from_numpy` and :func:`csr5_to_numpy` carry a converted
-matrix across between the two packages as numpy planes.
+matrix across between the two packages as numpy planes;
+:func:`dia_from_numpy` and :func:`dia_to_numpy` do the same for a DIA
+matrix, and a HYB matrix crosses as its two parts.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ import numpy as np
 import torch
 
 from ..config import CSR5Config
+from ..ops.dia import DIAMatrix
+
+#: the static (non-tensor) fields of a DIA matrix, as the JAX
+#: ``DIAMatrix`` declares them (``ops/dia.py:66-71``)
+DIA_STATIC_FIELDS = ("shape", "offsets", "nnz_stored", "m_pad", "interleaved")
 
 #: the tensor fields of :class:`CSR5Matrix`, in declaration order
 PLANE_FIELDS = (
@@ -213,6 +220,31 @@ def csr5_from_numpy(planes: dict, static: dict, device="cpu") -> CSR5Matrix:
     if a5.col_idx_tiles is None:
         a5.col_idx_tiles = col_tiles_of(a5).contiguous()
     return a5
+
+
+def dia_from_numpy(data, static: dict, device="cpu") -> DIAMatrix:
+    """Build the port's :class:`..ops.dia.DIAMatrix` from a numpy value
+    plane and the static fields of :data:`DIA_STATIC_FIELDS`. A matrix
+    the JAX package built crosses as ``np.asarray(d.data)`` and
+    ``{f: getattr(d, f)}``; a bfloat16 plane keeps its dtype."""
+    return DIAMatrix(
+        shape=tuple(int(v) for v in static["shape"]),
+        offsets=tuple(int(o) for o in static["offsets"]),
+        nnz_stored=int(static["nnz_stored"]),
+        data=_to_tensor(data, device),
+        m_pad=int(static["m_pad"]),
+        interleaved=bool(static["interleaved"]),
+    )
+
+
+def dia_to_numpy(dia: DIAMatrix) -> Tuple[np.ndarray, dict]:
+    """``(data, static)`` of a port DIA matrix as a host numpy copy: the
+    inverse of :func:`dia_from_numpy`, with a bfloat16 plane widened to
+    float32 (exact)."""
+    d = dia.data.detach()
+    if d.dtype == torch.bfloat16:
+        d = d.float()
+    return d.cpu().numpy().copy(), {k: getattr(dia, k) for k in DIA_STATIC_FIELDS}
 
 
 def csr5_to_numpy(a5: CSR5Matrix) -> Tuple[dict, dict]:

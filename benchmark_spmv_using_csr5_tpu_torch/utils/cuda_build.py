@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone into
 ``_build/lib<name>.so`` inside the package (listed in ``.gitignore``),
 at first use, for ``sm_90a`` (Hopper). The library is rebuilt when its
-source is newer. Nothing is built when a module is imported, and a failed
+source is newer; :func:`build` starts one nvcc per stale source at once. Nothing is built when a module is imported, and a failed
 build raises: there is no fallback.
 """
 
@@ -30,7 +30,7 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: seconds each library took to build in this process (0.0 when an
-#: up-to-date library was only loaded)
+#: up-to-date library was found)
 build_seconds: Dict[str, float] = {}
 
 
@@ -44,6 +44,64 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _paths(name: str):
+    return os.path.join(CSRC_DIR, f"{name}.cu"), os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _build_stale(names) -> None:
+    """Build every library of ``names`` that is missing or older than its
+    source: one nvcc process per source, all started together. Call with
+    ``_lock`` held."""
+    stale = []
+    for name in names:
+        src, out = _paths(name)
+        if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+            build_seconds.setdefault(name, 0.0)
+        else:
+            stale.append((name, src, out))
+    if not stale:
+        return
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    for name, src, out in stale:
+        # build to a temporary name, then rename: a concurrent loader never
+        # sees a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE,
+            text=True,
+        )
+        jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+    errors = []
+    for name, src, out, tmp, proc, t0 in jobs:
+        try:
+            try:
+                _, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {src} (rc {proc.returncode}):\n{err[-4000:]}")
+            else:
+                os.replace(tmp, out)
+            build_seconds[name] = time.perf_counter() - t0
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build(names) -> None:
+    """Build the libraries of ``names`` that are stale, in parallel."""
+    with _lock:
+        _build_stale(names)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built from ``csrc/<name>.cu`` if it is
     missing or older than its source."""
@@ -51,33 +109,8 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        out = os.path.join(BUILD_DIR, f"lib{name}.so")
-        t0 = time.perf_counter()
-        if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            # build to a temporary name, then rename: a concurrent loader
-            # never sees a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                res = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                    capture_output=True,
-                    text=True,
-                    timeout=600,
-                )
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {src} (rc {res.returncode}):\n"
-                        f"{res.stderr[-4000:]}"
-                    )
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(out)
+        _build_stale([name])
+        lib = ctypes.CDLL(_paths(name)[1])
         _libs[name] = lib
         return lib
 

@@ -95,6 +95,8 @@ def _try_load() -> Optional[ctypes.CDLL]:
             lib.csr5_pack_col16.restype = None
             lib.csr5_descriptor.restype = None
             lib.csr5_empty_offsets.restype = None
+            lib.dia_plan.restype = ctypes.c_int64
+            lib.dia_fill.restype = None
         except AttributeError:
             # a symbol is missing (stale .so without a toolchain to
             # rebuild): treat the library as unavailable so every caller
@@ -323,3 +325,74 @@ def pack_col16(
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
     return out
+
+
+def dia_plan(
+    row_ptr: np.ndarray, col_idx: np.ndarray, m: int, n: int, cap: int
+):
+    """Distinct diagonal offsets (ascending int64 array), -1 when more
+    than ``cap`` exist (the max_diags gate — bails early), or None when
+    the native library is unavailable (callers take the numpy route)."""
+    lib = _try_load()
+    if lib is None:
+        return None
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    col_idx = np.ascontiguousarray(col_idx, np.int32)
+    marks = prefaulted(m + n - 1, np.uint8)  # zeroed
+    uniq = prefaulted(max(cap, 1), np.int64)
+    cnt = lib.dia_plan(
+        ctypes.c_int64(m),
+        ctypes.c_int64(n),
+        row_ptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        col_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        marks.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        uniq.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(cap),
+    )
+    if cnt < 0:
+        return -1
+    return uniq[:cnt].copy()
+
+
+def dia_fill(
+    row_ptr: np.ndarray,
+    col_idx: np.ndarray,
+    values: np.ndarray,
+    uniq: np.ndarray,
+    m: int,
+    n: int,
+    m_pad: int,
+    arena: Optional[str] = None,
+) -> Optional[np.ndarray]:
+    """Zero + scatter-fill the interleaved (m_pad/128, nd, 128) f32 DIA
+    plane, summing duplicates; None when the lib is unavailable."""
+    lib = _try_load()
+    if lib is None:
+        return None
+    nd = len(uniq)
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    col_idx = np.ascontiguousarray(col_idx, np.int32)
+    diag_index = prefaulted(m + n - 1, np.int32)
+    diag_index[np.asarray(uniq, np.int64) + (m - 1)] = np.arange(
+        nd, dtype=np.int32
+    )
+    data = _out_buf((m_pad // 128, nd, 128), np.float32, arena, zero=False)
+    if values.dtype == np.float32:
+        v32 = np.ascontiguousarray(values, np.float32)
+        v64p, v32p = None, v32.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    else:
+        v64 = np.ascontiguousarray(values, np.float64)
+        v64p = v64.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+        v32p = None
+    lib.dia_fill(
+        ctypes.c_int64(m),
+        ctypes.c_int64(m_pad),
+        ctypes.c_int64(nd),
+        row_ptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        col_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        v64p,
+        v32p,
+        diag_index.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        data.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    )
+    return data

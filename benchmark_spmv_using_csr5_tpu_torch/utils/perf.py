@@ -70,14 +70,21 @@ def spmv_metrics(
     value_bytes: int,
     index_bytes: int = 4,
     roofline_gbps: Optional[float] = None,
+    num_rhs: int = 1,
+    n: Optional[int] = None,
 ) -> SpmvMetrics:
     """SpMV metrics under the reference's models; the roofline share only
-    when ``roofline_gbps`` is given."""
-    gbps = get_bytes(m, nnz, index_bytes, value_bytes) / (1e6 * time_ms)
+    when ``roofline_gbps`` is given. For SpMM (``num_rhs > 1``) the flops
+    scale by R and the bytes add the (x + y) traffic of each extra
+    right-hand side, as the JAX package counts them."""
+    b = get_bytes(m, nnz, index_bytes, value_bytes)
+    if num_rhs > 1:
+        b += (num_rhs - 1) * ((n or m) + m) * value_bytes
+    gbps = b / (1e6 * time_ms)
     return SpmvMetrics(
         time_ms=time_ms,
         gbps=gbps,
-        gflops=get_flops(nnz) / (1e6 * time_ms),
+        gflops=get_flops(nnz) * num_rhs / (1e6 * time_ms),
         nnz_per_sec=nnz / (time_ms * 1e-3),
         roofline_gbps=roofline_gbps,
         pct_of_roofline=None if roofline_gbps is None else 100.0 * gbps / roofline_gbps,

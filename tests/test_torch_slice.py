@@ -1,9 +1,11 @@
-"""The port's main path as a whole, on the CPU, against the JAX pipeline.
+"""The port's CLI paths as a whole, on the CPU, against the JAX pipeline.
 
-``cli.run`` loads the matrix, converts it, checks y against scipy at the
-reference's 1 % gate and times it, as the JAX CLI does. On these
-integer-valued inputs the check must give max rel err 0.0, and y must
-equal the JAX pipeline's y on the same seed (``default_rng(0)``), exactly.
+``cli.run`` loads the matrix, reorders it, picks the format, converts it,
+checks y against scipy at the reference's 1 % gate and times it, as the
+JAX CLI does: CSR5, DIA (SpMV and SpMM), HYB5, ``--format auto`` and
+``--reorder rcm|auto``. On these integer-valued inputs the check must give
+max rel err 0.0, and y must equal the JAX pipeline's y on the same seed
+(``default_rng(0)``), exactly.
 """
 
 import argparse
@@ -11,8 +13,14 @@ import os
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
+import benchmark_spmv_using_csr5_tpu as J
+import benchmark_spmv_using_csr5_tpu.ops.dia as jdia
+import benchmark_spmv_using_csr5_tpu.ops.hyb as jhyb
+import benchmark_spmv_using_csr5_tpu.ops.select as jsel
+import benchmark_spmv_using_csr5_tpu.utils.reorder as jreorder
 from benchmark_spmv_using_csr5_tpu.bench import cli as jcli
 from benchmark_spmv_using_csr5_tpu.bench.harness import run_benchmark as jax_run_benchmark
 from benchmark_spmv_using_csr5_tpu.ops.csr5_spmv import csr5_spmv_xla
@@ -51,17 +59,91 @@ def test_slice_matches_jax_pipeline(argv):
     [
         (["--dtype", "float64"], "item 7"),
         (["--spmm", "4"], "item 8"),
-        (["--format", "dia"], "item 9"),
-        (["--format", "hyb"], "item 9"),
         (["--format", "bandblock"], "item 8"),
-        (["--format", "auto"], "item 9"),
         (["--autotune"], "item 2"),
-        (["--reorder", "rcm"], "item 9"),
+        (["--format", "auto", "--spmm", "4"], "item 8"),
+        (["--format", "hyb", "--spmm", "4"], "item 8"),
     ],
 )
 def test_cli_unported_choices_raise(extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         cli.run([EXAMPLE] + extra)
+
+
+def _jax_cli_y(argv):
+    """The JAX CLI's path for ``argv`` (``cli.py:106-168``, ``_run_dia``,
+    ``_run_hyb``): the same loading, reordering and format choice, with
+    the Pallas DIA kernel in interpret mode and the XLA CSR5 executor.
+    Returns (format, name, y) for x from ``default_rng(0)``."""
+    args = cli.parse_args(argv)
+    rp, ci, v, shape, name = jcli.load_matrix(args)
+    if args.reorder == "auto":
+        plan = jsel.select_plan(rp, ci, shape)
+        if plan.reorder is not None:
+            (rp, ci, v, shape), _ = jsel.apply_plan((rp, ci, v, shape), plan)
+            name = f"{name}+{plan.reorder}"
+    elif args.reorder != "none":
+        a_perm, _ = jreorder.reorder_for_locality(
+            sp.csr_matrix((v, ci, rp), shape=shape), method=args.reorder
+        )
+        rp, ci, v = a_perm.indptr, a_perm.indices, a_perm.data
+        name = f"{name}+{args.reorder}"
+    fmt = jsel.select_format(rp, ci, shape) if args.format == "auto" else args.format
+    host = (rp, ci, v, shape)
+    rng = np.random.default_rng(0)
+    if fmt == "dia":
+        x = rng.integers(1, 10, (shape[1], args.spmm) if args.spmm > 1 else shape[1])
+        d = jdia.build_dia(host)
+        fn = jdia.dia_spmm if args.spmm > 1 else jdia.dia_spmv
+        y = fn(d, x.astype(np.float32), interpret=True)
+    elif fmt == "hyb":
+        x = rng.integers(1, 10, shape[1]).astype(np.float32)
+        y = jhyb.hyb_spmv(jhyb.build_hyb(host), x, csr5_backend="xla", interpret=True)
+    else:
+        x = rng.integers(1, 10, shape[1]).astype(np.float32)
+        a5 = J.build_csr5(host, J.CSR5Config(sigma=J.compute_sigma(shape[0], len(v))))
+        y = csr5_spmv_xla(a5, x)
+    return fmt, name, np.asarray(y)
+
+
+@pytest.mark.parametrize(
+    "argv,fmt",
+    [
+        (["--synthetic", "banded:3000:27", "--format", "dia"], "dia"),
+        (["--synthetic", "banded:3000:27", "--format", "dia", "--spmm", "4"], "dia"),
+        (["--synthetic", "fem:3000", "--format", "hyb"], "hyb"),
+        (["--synthetic", "banded:3000:27", "--format", "auto"], "dia"),
+        (["--synthetic", "fem:3000", "--format", "auto"], "hyb"),
+        (["--synthetic", "scatband:3000:12:1800", "--reorder", "rcm"], "csr5"),
+        (["--synthetic", "powerlaw:3000:8", "--reorder", "auto", "--format", "auto"], "csr5"),
+    ],
+    ids=["dia", "dia-spmm4", "hyb", "auto-dia", "auto-hyb", "rcm", "reorder-auto"],
+)
+def test_cli_format_paths_match_jax(argv, fmt):
+    """Each format and reorder path of the CLI checks PASS with max rel
+    err 0.0 on the CPU and gives the JAX CLI path's y, exactly."""
+    res = cli.run(argv + ["--num-run", "2"])
+    assert res.check_ok and res.max_rel_err == 0.0
+    assert res.backend == "torch" and res.format == fmt
+    jfmt, jname, y_jax = _jax_cli_y(argv)
+    assert (res.format, res.name) == (jfmt, jname)
+    assert res.y.shape == y_jax.shape
+    np.testing.assert_array_equal(res.y.numpy(), y_jax)
+    if cli.parse_args(argv).format == "auto":
+        assert f"auto-selected format: {fmt}" in res.report()
+    assert not any(res.launches.values())  # no kernel runs on the CPU
+
+
+def test_cli_dia_rejects_unstructured_matrix():
+    with pytest.raises(SystemExit, match="not diagonal-structured"):
+        cli.run(["--synthetic", "powerlaw:2000:8", "--format", "dia", "--num-run", "1"])
+
+
+def test_cli_reorder_requires_square():
+    args = cli.parse_args(["--reorder", "rcm"])
+    a = sp.csr_matrix(np.ones((2, 3), np.float32))
+    with pytest.raises(SystemExit, match="square"):
+        cli.run_matrix(args, "rect", a.indptr, a.indices, a.data, a.shape)
 
 
 def test_cli_cuda_backend_without_card_raises(monkeypatch):
