@@ -4,14 +4,23 @@ The counterpart of ``benchmark_spmv_using_csr5_tpu/bench/cli.py`` with the
 same arguments (``cli.py:56-104``):
 
     cli.py matrix.mtx [--sigma N] [--num-run N] [--backend auto|cuda|torch]
-           [--format csr5|dia|hyb|auto] [--reorder none|rcm|auto] [--spmm K]
-    cli.py --synthetic banded:500000:27 --format auto
+           [--format csr5|dia|hyb|bandblock|auto] [--reorder none|rcm|auto]
+           [--spmm K]
+    cli.py --synthetic banded:500000:27 --format auto [--spmm 8]
 
-Float32 values run through CSR5 SpMV (K1), DIA SpMV (K5) and SpMM (K6,
-``--format dia --spmm K``), and HYB5 SpMV (K5 + K1). ``--format auto``
-picks the format from the structure (``ops/select.py``); ``--reorder``
-applies RCM first. Every other choice raises with the ROADMAP item that
-ports it.
+Float32 values run through these kernels:
+
+- SpMV (``--spmm 1``): CSR5 (K1), DIA (K5), HYB5 (K5 + K1);
+- SpMM (``--spmm K``, K > 1): ``--format csr5`` (K2), ``--format dia``
+  (K6), ``--format bandblock`` (K7, also at K = 1).
+
+``--format auto`` picks the format from the structure (``ops/select.py``);
+with ``--spmm K > 1`` it picks bandblock when ``build_bandblock`` takes the
+matrix, else dia if the structure says dia, else csr5, exactly as the JAX
+CLI (``cli.py:134-154``). ``--format hyb --spmm K > 1`` exits with the JAX
+CLI's message: HYB5 is a SpMV format there. ``--reorder`` applies RCM
+first. ``--dtype float64`` and ``--autotune`` raise with the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import scipy.sparse as sp
 import torch
 
 from ..config import AUTO_TUNED_SIGMA
+from ..ops.bandmm import bandblock_accepts
 from ..ops.select import apply_plan, select_format, select_plan
 from ..utils import mmio, reorder, synth
 from . import harness
@@ -32,12 +42,6 @@ from .harness import BenchResult
 #: arguments the port does not run yet -> the ROADMAP item that ports them
 NOT_PORTED = {
     "float64": "--dtype float64 is kernel K4 (ROADMAP queue 1 item 7)",
-    "spmm": "--spmm K>1 with --format csr5 is kernel K2 (ROADMAP queue 1 item 8)",
-    "spmm_hyb": "--spmm K>1 with --format hyb is hyb_spmm, whose CSR5 part is "
-    "kernel K2 (ROADMAP queue 1 item 8)",
-    "spmm_auto": "--spmm K>1 with --format auto picks bandblock (kernel K7) or "
-    "csr5 (kernel K2) (ROADMAP queue 1 item 8)",
-    "bandblock": "--format bandblock is kernel K7 (ROADMAP queue 1 item 8)",
     "autotune": "--autotune is the autotuned build (ROADMAP queue 1 item 2)",
 }
 
@@ -101,13 +105,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse_unported(args) -> None:
-    spmm_key = {"csr5": "spmm", "hyb": "spmm_hyb", "auto": "spmm_auto"}.get(args.format)
-    for chosen, key in (
-        (args.dtype == "float64", "float64"),
-        (args.format == "bandblock", "bandblock"),
-        (args.spmm != 1 and spmm_key is not None, spmm_key),
-        (args.autotune, "autotune"),
-    ):
+    for chosen, key in ((args.dtype == "float64", "float64"), (args.autotune, "autotune")):
         if chosen:
             raise NotImplementedError(f"not ported yet: {NOT_PORTED[key]}")
 
@@ -150,15 +148,27 @@ def run_matrix(args, name, rp, ci, v, shape) -> BenchResult:
     fmt = args.format
     if fmt == "auto":
         fmt = select_format(rp, ci, shape)
+        if args.spmm > 1:
+            # multi-rhs: the band-block path whenever the matrix's 128-row
+            # blocks have bounded windows, else dia or csr5
+            if bandblock_accepts((rp, ci, v, shape)):
+                fmt = "bandblock"
+            elif fmt != "dia":
+                fmt = "csr5"
         notes.append(f"auto-selected format: {fmt}")
+    R = max(args.spmm, 1)
+    run = {"num_run": args.num_run, "device": device}
     if fmt == "dia":
-        R = max(args.spmm, 1)
-        res = harness.run_dia(name, rp, ci, v, shape, R, num_run=args.num_run, device=device)
+        res = harness.run_dia(name, rp, ci, v, shape, R, **run)
     elif fmt == "hyb":
-        res = harness.run_hyb(name, rp, ci, v, shape, num_run=args.num_run, device=device)
+        if args.spmm > 1:
+            raise SystemExit("--format hyb supports SpMV only (--spmm 1)")
+        res = harness.run_hyb(name, rp, ci, v, shape, **run)
+    elif fmt == "bandblock":
+        res = harness.run_bandblock(name, rp, ci, v, shape, R, **run)
     else:
         res = harness.run_benchmark(
-            name, rp, ci, v, shape, sigma=args.sigma, num_run=args.num_run, device=device
+            name, rp, ci, v, shape, sigma=args.sigma, num_rhs=args.spmm, **run
         )
     res.plan = "; ".join(notes)
     return res

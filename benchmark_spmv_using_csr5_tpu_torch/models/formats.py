@@ -1,4 +1,4 @@
-"""Sparse matrix containers: CSR and CSR5, as dataclasses of torch tensors.
+"""Sparse matrix containers: COO, CSR and CSR5, as dataclasses of torch tensors.
 
 The counterpart of ``benchmark_spmv_using_csr5_tpu/models/formats.py``
 with the same field names and static fields (``formats.py:132-198``), so
@@ -58,6 +58,25 @@ STATIC_FIELDS = (
     "m_pad",
     "n_pad",
 )
+
+
+@dataclasses.dataclass
+class COOMatrix:
+    """Coordinate-format sparse matrix, the .mtx on-disk model
+    (``main.cu:211-238``; the JAX ``COOMatrix``, ``formats.py:35-52``)."""
+
+    row: torch.Tensor  # (nnz,) int32
+    col: torch.Tensor  # (nnz,) int32
+    values: torch.Tensor  # (nnz,) float
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
 
 
 @dataclasses.dataclass

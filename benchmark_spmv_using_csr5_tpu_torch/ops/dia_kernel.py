@@ -106,19 +106,6 @@ def _check_x(x: torch.Tensor, dev: torch.device, shape, who: str) -> None:
     raise ValueError(f"{who}: x must be a contiguous {tuple(shape)} tensor, got {tuple(x.shape)}")
 
 
-#: the current stream of a device as an int without building a Stream
-#: object (0.15 us per call on the H100's host, against 4.6 us for
-#: ``torch.cuda.current_stream(dev).cuda_stream``; PERF.md); PyTorch's own
-#: kernel launchers read it this way. CPU-only builds of torch lack it.
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _stream(dev: torch.device) -> int:
-    if _raw_stream is not None:
-        return _raw_stream(dev.index)
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _cpu_refused(x: torch.Tensor, who: str) -> None:
     if not x.is_cuda:
         raise ValueError(f"{who} takes CUDA tensors; CPU tensors go through the plain version")
@@ -137,7 +124,8 @@ def dia_spmv_cuda(dia: DIAMatrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     _check_x(x, dev, (dia.n,), "dia_spmv_cuda")
     xa = x if alpha == 1.0 else x * alpha
     y = torch.empty(dia.m, dtype=torch.float32, device=dev)
-    rc = fn(args[0], args[1], xa.data_ptr(), y.data_ptr(), *args[2:], _stream(dev))
+    stream = cuda_build.stream_handle(dev)
+    rc = fn(args[0], args[1], xa.data_ptr(), y.data_ptr(), *args[2:], stream)
     if rc:
         _raise_on(rc, "dia_spmv_cuda")
     spmv_launches += 1
@@ -160,7 +148,8 @@ def dia_spmm_cuda(dia: DIAMatrix, xm: torch.Tensor, alpha=1.0) -> torch.Tensor:
     xa = xm if alpha == 1.0 else xm * alpha
     y = torch.empty((dia.m, R), dtype=torch.float32, device=dev)
     vec = int(R % 4 == 0 and xa.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    rc = fn(args[0], args[1], xa.data_ptr(), y.data_ptr(), *args[2:], R, vec, _stream(dev))
+    stream = cuda_build.stream_handle(dev)
+    rc = fn(args[0], args[1], xa.data_ptr(), y.data_ptr(), *args[2:], R, vec, stream)
     if rc:
         _raise_on(rc, who)
     spmm_launches += 1

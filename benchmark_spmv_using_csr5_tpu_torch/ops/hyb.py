@@ -2,12 +2,13 @@
 
 The counterpart of ``benchmark_spmv_using_csr5_tpu/ops/hyb.py``. Nonzeros
 on dense diagonals (filled to at least ``diag_fill`` of their length) go
-to a DIA part, run by K5; the irregular remainder goes to a CSR5 part, run
-by K1; ``y = A_dia x + A_csr5 x``, DIA first, as in the JAX package.
+to a DIA part, run by K5 (SpMV) or K6 (SpMM); the irregular remainder goes
+to a CSR5 part, run by K1 or K2; ``y = A_dia x + A_csr5 x``, DIA first, as
+in the JAX package.
 
-Unlike the JAX ``hyb_spmv``, which takes the XLA path for a DIA part the
-Pallas kernel cannot take, the port has no second path on the card: on
-CUDA tensors each part runs its kernel or raises.
+Unlike the JAX ``hyb_spmv``/``hyb_spmm``, which take the XLA path for a
+part the Pallas kernels cannot take, the port has no second path on the
+card: on CUDA tensors each part runs its kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ import torch
 from ..config import CSR5Config
 from ..models.formats import CSR5Matrix
 from .convert import build_csr5
-from .csr5_spmv import csr5_spmv
-from .dia import CHUNK_ROWS, LANES, MAX_DIAGS, DIAMatrix, _as_host, dia_spmv
+from .csr5_spmv import csr5_spmm, csr5_spmv
+from .dia import CHUNK_ROWS, LANES, MAX_DIAGS, DIAMatrix, _as_host, dia_spmm, dia_spmv
 
 
 @dataclasses.dataclass
@@ -135,8 +136,18 @@ def hyb_spmv(
     return y
 
 
-def hyb_spmm(h: HYBMatrix, x: torch.Tensor, alpha=1.0, backend: str = "auto"):
-    """Y = alpha * A @ X: its CSR5 part needs the CSR5 SpMM kernel K2."""
-    raise NotImplementedError(
-        "hyb_spmm needs the CSR5 SpMM kernel K2 (ROADMAP queue 1 item 8)"
-    )
+def hyb_spmm(
+    h: HYBMatrix, x: torch.Tensor, alpha=1.0, backend: str = "auto"
+) -> torch.Tensor:
+    """Y = alpha * A @ X for X (n, R) (``hyb.py:176-217``): DIA part (K6)
+    + CSR5 part (K2) on CUDA tensors, the plain versions of both on CPU
+    tensors; each part streams its value plane once for all R."""
+    y = None
+    if h.dia is not None:
+        y = dia_spmm(h.dia, x, alpha, backend=backend)
+    if h.csr5 is not None:
+        yc = csr5_spmm(h.csr5, x, alpha, backend=backend)
+        y = yc if y is None else y + yc
+    if y is None:
+        return torch.zeros((h.m, x.shape[1]), dtype=x.dtype, device=x.device)
+    return y

@@ -97,6 +97,7 @@ def _try_load() -> Optional[ctypes.CDLL]:
             lib.csr5_empty_offsets.restype = None
             lib.dia_plan.restype = ctypes.c_int64
             lib.dia_fill.restype = None
+            lib.bandblock_fill.restype = None
         except AttributeError:
             # a symbol is missing (stale .so without a toolchain to
             # rebuild): treat the library as unavailable so every caller
@@ -325,6 +326,46 @@ def pack_col16(
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
     return out
+
+
+def bandblock_fill(
+    row_ptr: np.ndarray,
+    col_idx: np.ndarray,
+    values: np.ndarray,
+    c0_pages: np.ndarray,
+    m: int,
+    m_pad: int,
+    K: int,
+    arena: Optional[str] = None,
+) -> Optional[np.ndarray]:
+    """Zero + scatter-fill the (m_pad, K) float32 dense band-block plane
+    (ops/bandmm.py); None when the native library is unavailable."""
+    lib = _try_load()
+    if lib is None:
+        return None
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    col_idx = np.ascontiguousarray(col_idx, np.int32)
+    c0_pages = np.ascontiguousarray(c0_pages, np.int32)
+    dense = _out_buf((m_pad, K), np.float32, arena, zero=False)
+    if values.dtype == np.float32:
+        v32 = np.ascontiguousarray(values, np.float32)
+        v64p, v32p = None, v32.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    else:
+        v64 = np.ascontiguousarray(values, np.float64)
+        v64p = v64.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+        v32p = None
+    lib.bandblock_fill(
+        ctypes.c_int64(m),
+        ctypes.c_int64(m_pad),
+        ctypes.c_int64(K),
+        row_ptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        col_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        v64p,
+        v32p,
+        c0_pages.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        dense.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    )
+    return dense
 
 
 def dia_plan(

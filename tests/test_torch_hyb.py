@@ -3,8 +3,9 @@
 ``build_hyb`` must split the nonzeros exactly as the JAX one does: the
 same dense diagonals with the same plane, and a CSR5 remainder with the
 same planes. ``hyb_spmv`` runs the plain versions of K5 and K1 here (no
-GPU) and must equal the JAX ``hyb_spmv`` (interpret-mode DIA kernel, XLA
-CSR5 executor) and scipy exactly: values, x (1-9) and alpha (1.25) are
+GPU), ``hyb_spmm`` those of K6 and K2, and both must equal the JAX
+``hyb_spmv``/``hyb_spmm`` (interpret-mode DIA kernels, XLA CSR5
+executors) and scipy exactly: values, x (1-9) and alpha (1.25, -1.75) are
 small integers or dyadic, so every partial sum is exact in float32.
 """
 
@@ -128,9 +129,40 @@ def test_hyb_empty_gives_zeros():
 
 
 def test_hyb_spmm_waits_for_k2():
+    """hyb_spmm once raised until K2 was ported; its CSR5 part now runs
+    K2's plain version here, beside K6's on the DIA part."""
+    host, hj, hp = _both("mixed")
+    X = np.random.default_rng(3).integers(1, 10, (1500, 4)).astype(np.float32)
+    y = phyb.hyb_spmm(hp, torch.from_numpy(X)).numpy()
+    np.testing.assert_array_equal(y, np.asarray(jhyb.hyb_spmm(hj, X, csr5_backend="xla", interpret=True)))
+
+
+@pytest.mark.parametrize("R", [1, 5, 8])
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_hyb_spmm_plain_matches_jax_exactly(name, R):
+    """K6's and K2's plain versions, summed, against the JAX ``hyb_spmm``
+    (interpret-mode DIA SpMM kernel, XLA CSR5 SpMM) and scipy, alpha
+    -1.75: exact on these integer-valued inputs."""
+    host, hj, hp = _both(name)
+    X = np.random.default_rng(4).integers(1, 10, (host[3][1], R)).astype(np.float32)
+    y = P.hyb_spmm(hp, torch.from_numpy(X), -1.75).numpy()
+    y_jax = np.asarray(jhyb.hyb_spmm(hj, X, -1.75, csr5_backend="xla", interpret=True))
+    np.testing.assert_array_equal(y, y_jax)
+    a = sp.csr_matrix((host[2], host[1], host[0]), shape=host[3])
+    np.testing.assert_array_equal(y, (-1.75 * (a @ X)).astype(np.float32))
+    assert y.shape == (host[3][0], R)
+
+
+def test_hyb_spmm_empty_gives_zeros():
+    e = sp.csr_matrix((16, 16), dtype=np.float32)
+    y = P.hyb_spmm(phyb.build_hyb(_host(e)), torch.ones(16, 3))
+    assert y.shape == (16, 3) and not y.any()
+
+
+def test_hyb_spmm_cuda_backend_on_cpu_tensors_raises():
     _, _, hp = _both("mixed")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        phyb.hyb_spmm(hp, torch.ones(1500, 4))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        P.hyb_spmm(hp, torch.ones(1500, 2), backend="cuda")
 
 
 def test_hyb_cuda_backend_on_cpu_tensors_raises():
