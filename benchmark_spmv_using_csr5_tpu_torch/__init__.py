@@ -2,21 +2,27 @@
 CSR5 SpMV framework in ``benchmark_spmv_using_csr5_tpu`` (the JAX
 package, which stays the reference it is tested against).
 
-It imports torch, numpy and scipy, never jax. CSR5 SpMV and SpMM
-(``csrc/csr5_spmv.cu``, ``csrc/csr5_spmm.cu``), DIA SpMV and SpMM
-(``csrc/dia_spmv.cu``) and band-block SpMM (``csrc/bandmm.cu``) run through
-hand-written CUDA kernels on CUDA tensors and through their plain PyTorch
-versions on CPU tensors; HYB5 runs DIA and CSR5 together; ``select_format``
-picks a format from the structure:
+It imports torch, numpy and scipy, never jax. CSR5 SpMV in float32
+and float64 and SpMM (``csrc/csr5_spmv.cu``, ``csrc/csr5_spmv_f64.cu``,
+``csrc/csr5_spmm.cu``), DIA SpMV and SpMM (``csrc/dia_spmv.cu``) and
+band-block SpMM (``csrc/bandmm.cu``) run through hand-written CUDA kernels
+on CUDA tensors and through their plain PyTorch versions on CPU tensors;
+HYB5 runs DIA and CSR5 together; ``select_format`` picks a format from
+the structure. The builders put their planes on the card unless given
+``device="cpu"``, and raise without a card:
 
     >>> from benchmark_spmv_using_csr5_tpu_torch import build_csr5, csr5_spmv
-    >>> a5 = build_csr5(scipy_csr_matrix, device="cuda")
+    >>> a5 = build_csr5(scipy_csr_matrix)
     >>> y = csr5_spmv(a5, x_cuda_float32)
     >>> Y = csr5_spmm(a5, X_cuda_float32)                 # X (n, R)
-    >>> d = build_dia(scipy_csr_matrix, device="cuda")   # None if not banded
+    >>> a64 = build_csr5(scipy_csr_matrix, value_dtype=torch.float64)
+    >>> y = csr5_spmv(a64, x_cuda_float64)                # K4
+    >>> d = build_dia(scipy_csr_matrix)                  # None if not banded
     >>> y = dia_spmv(d, x_cuda_float32)
-    >>> bb = build_bandblock(scipy_csr_matrix, device="cuda")  # None if not banded
+    >>> bb = build_bandblock(scipy_csr_matrix)           # None if not banded
     >>> Y = bandmm_spmm(bb, X_cuda_float32)
+    >>> h = SpMVHandle(m, n).inputCSR(nnz, row_ptr, col_idx, values).asCSR5()
+    >>> x, res = solvers.conjugate_gradient(lambda v: csr5_spmv(a5, v), b)
 
 The CUDA libraries are built with nvcc at the first launch, not at import.
 """
@@ -27,12 +33,15 @@ from .models.formats import (
     CSR5Matrix,
     CSRMatrix,
     col_tiles_of,
+    csr5_from_df64,
     csr5_from_numpy,
     csr5_to_numpy,
     dia_from_numpy,
     dia_to_numpy,
 )
-from .ops.convert import build_csr5, csr5_to_csr
+from .models import solvers
+from .models.handle import SpMVHandle
+from .ops.convert import build_csr5, build_csr5_autotuned, csr5_to_csr
 from .ops.bandmm import (
     BandBlockMatrix,
     bandmm_spmm,
@@ -41,6 +50,7 @@ from .ops.bandmm import (
     bandmm_supported,
     build_bandblock,
 )
+from .ops.csr5_f64 import csr5_spmv_f64_cuda, f64_supported
 from .ops.csr5_kernel import csr5_spmm_cuda, csr5_spmv_cuda
 from .ops.csr5_spmv import csr5_spmm, csr5_spmm_torch, csr5_spmv, csr5_spmv_torch
 from .ops.dia import DIAMatrix, build_dia, dia_spmm, dia_spmv, dia_supported
@@ -58,16 +68,22 @@ __all__ = [
     "CSRMatrix",
     "CSR5Matrix",
     "col_tiles_of",
+    "csr5_from_df64",
     "csr5_from_numpy",
     "csr5_to_numpy",
+    "SpMVHandle",
+    "solvers",
     "build_csr5",
+    "build_csr5_autotuned",
     "csr5_to_csr",
     "csr5_spmm",
     "csr5_spmm_cuda",
     "csr5_spmm_torch",
     "csr5_spmv",
     "csr5_spmv_cuda",
+    "csr5_spmv_f64_cuda",
     "csr5_spmv_torch",
+    "f64_supported",
     "coo_spmv",
     "csr_spmm",
     "csr_spmv",

@@ -5,22 +5,27 @@ same arguments (``cli.py:56-104``):
 
     cli.py matrix.mtx [--sigma N] [--num-run N] [--backend auto|cuda|torch]
            [--format csr5|dia|hyb|bandblock|auto] [--reorder none|rcm|auto]
-           [--spmm K]
+           [--spmm K] [--dtype float32|float64] [--autotune]
     cli.py --synthetic banded:500000:27 --format auto [--spmm 8]
 
-Float32 values run through these kernels:
+It runs on the card (``--backend auto``, the default, or ``cuda``) and
+exits without one; ``--backend torch`` runs the plain versions on the
+CPU. Float32 values run through these kernels:
 
 - SpMV (``--spmm 1``): CSR5 (K1), DIA (K5), HYB5 (K5 + K1);
 - SpMM (``--spmm K``, K > 1): ``--format csr5`` (K2), ``--format dia``
   (K6), ``--format bandblock`` (K7, also at K = 1).
+
+``--dtype float64`` runs CSR5 SpMV on a float64 plane (K4); every other
+format, and SpMM, has no float64 kernel and exits naming it.
 
 ``--format auto`` picks the format from the structure (``ops/select.py``);
 with ``--spmm K > 1`` it picks bandblock when ``build_bandblock`` takes the
 matrix, else dia if the structure says dia, else csr5, exactly as the JAX
 CLI (``cli.py:134-154``). ``--format hyb --spmm K > 1`` exits with the JAX
 CLI's message: HYB5 is a SpMV format there. ``--reorder`` applies RCM
-first. ``--dtype float64`` and ``--autotune`` raise with the ROADMAP item
-that ports them.
+first. ``--autotune`` converts CSR5 with the structure-aware sigma
+re-tune (``build_csr5_autotuned``).
 """
 
 from __future__ import annotations
@@ -38,13 +43,6 @@ from ..ops.select import apply_plan, select_format, select_plan
 from ..utils import mmio, reorder, synth
 from . import harness
 from .harness import BenchResult
-
-#: arguments the port does not run yet -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "float64": "--dtype float64 is kernel K4 (ROADMAP queue 1 item 7)",
-    "autotune": "--autotune is the autotuned build (ROADMAP queue 1 item 2)",
-}
-
 
 def load_matrix(args):
     dtype = np.dtype(args.dtype)
@@ -91,9 +89,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--backend",
         default="auto",
         choices=["auto", "cuda", "torch"],
-        help="auto: the CUDA kernel when a card is present, else the plain "
-        "version on the CPU; cuda: the kernel, and fail without a card; "
-        "torch: the plain version on the CPU",
+        help="auto (a spelling of cuda) and cuda: the CUDA kernels on the "
+        "card, and fail without one; torch: the plain versions on the CPU",
     )
     ap.add_argument("--spmm", type=int, default=1, metavar="K")
     ap.add_argument(
@@ -104,17 +101,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    for chosen, key in ((args.dtype == "float64", "float64"), (args.autotune, "autotune")):
-        if chosen:
-            raise NotImplementedError(f"not ported yet: {NOT_PORTED[key]}")
+def _device(args) -> str:
+    """The device of ``--backend``: the card unless ``torch``; raises
+    when the card is missing."""
+    if args.backend == "torch":
+        return "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--backend {args.backend}: no CUDA device is available "
+            "(--backend torch runs the plain versions on the CPU)"
+        )
+    return "cuda"
 
 
 def run(argv=None) -> BenchResult:
     """Parse ``argv``, load the matrix and benchmark it."""
     args = parse_args(argv)
-    if args.backend == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--backend cuda: no CUDA device is available")
+    _device(args)  # before loading the matrix
     rp, ci, v, shape, name = load_matrix(args)
     return run_matrix(args, name, rp, ci, v, shape)
 
@@ -124,8 +127,7 @@ def run_matrix(args, name, rp, ci, v, shape) -> BenchResult:
     ``(rp, ci, v, shape)``: the part of the JAX ``main`` after
     ``load_matrix`` (``cli.py:106-168``). ``args`` is what
     :func:`parse_args` returns."""
-    _refuse_unported(args)
-    device = {"auto": None, "cuda": "cuda", "torch": "cpu"}[args.backend]
+    device = _device(args)
     notes = []
     if args.reorder == "auto":
         if shape[0] == shape[1]:
@@ -168,7 +170,8 @@ def run_matrix(args, name, rp, ci, v, shape) -> BenchResult:
         res = harness.run_bandblock(name, rp, ci, v, shape, R, **run)
     else:
         res = harness.run_benchmark(
-            name, rp, ci, v, shape, sigma=args.sigma, num_rhs=args.spmm, **run
+            name, rp, ci, v, shape, sigma=args.sigma, num_rhs=args.spmm,
+            autotune=args.autotune, **run
         )
     res.plan = "; ".join(notes)
     return res

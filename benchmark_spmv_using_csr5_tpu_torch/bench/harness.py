@@ -16,9 +16,12 @@ in the shape of the reference benchmark driver
    and the launches of each kernel during the run
 
 Every format is reported under the same getB bytes model, as the JAX
-package reports them. Data goes on ``cuda`` when a card is present; the
-CPU runs the plain versions and reports a host time with no roofline.
-Nothing falls back from the card to the CPU.
+package reports them. Float64 values run CSR5 SpMV on kernel K4 with a
+float64 plane; every other format, and SpMM, has no float64 kernel and
+exits saying so. Data goes on the card unless the caller passes
+``device="cpu"``, where the plain versions run and report a host time
+with no roofline. Without a card the default raises: nothing falls back
+from the card to the CPU.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..config import AUTO_TUNED_SIGMA, CSR5Config, compute_sigma
-from ..ops import bandmm, bandmm_kernel, convert, csr5_kernel, dia_kernel
+from ..config import AUTO_TUNED_SIGMA, DEFAULT_DEVICE, CSR5Config, compute_sigma, resolve_device
+from ..ops import bandmm, bandmm_kernel, convert, csr5_f64, csr5_kernel, dia_kernel
 from ..ops.csr5_spmv import csr5_spmm, csr5_spmv
 from ..ops.dia import build_dia, dia_spmm, dia_spmm_supported, dia_spmv, dia_supported
 from ..ops.hyb import build_hyb, hyb_spmv
@@ -117,6 +120,7 @@ def kernel_launches() -> dict:
     """The launch counters of the port's kernels, by kernel name."""
     return {
         "csr5_spmv": csr5_kernel.launches,
+        "csr5_spmv_f64": csr5_f64.launches,
         "csr5_spmm": csr5_kernel.spmm_launches,
         "dia_spmv": dia_kernel.spmv_launches,
         "dia_spmm": dia_kernel.spmm_launches,
@@ -140,16 +144,20 @@ def rel_err(y: torch.Tensor, y_ref: np.ndarray) -> float:
     return float(rel.max()) if rel.numel() else 0.0
 
 
-def default_device() -> torch.device:
-    """``cuda`` when a card is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
-def _float32_only(values: np.ndarray) -> None:
-    if values.dtype != np.float32:
-        raise NotImplementedError(
-            f"value dtype {values.dtype}: the port runs float32 only "
-            "(float64 is kernel K4, ROADMAP queue 1 item 7)"
+def _check_values(values: np.ndarray, fmt: str, num_rhs: int = 1) -> None:
+    """float32 values run everywhere; float64 only CSR5 SpMV (K4). Every
+    other float64 case exits naming the format, as the JAX DIA path does
+    (``cli.py:283-287``): nothing is narrowed quietly."""
+    if values.dtype == np.float32:
+        return
+    if values.dtype != np.float64:
+        raise ValueError(f"value dtype {values.dtype}: the port runs float32 and float64")
+    spmm = num_rhs > 1 or fmt == "bandblock"
+    if fmt != "csr5" or spmm:
+        raise SystemExit(
+            f"--dtype float64: --format {fmt}{f' --spmm {num_rhs}' if spmm else ''} has no "
+            "float64 kernel (float64 runs CSR5 SpMV on K4); use --format csr5 --spmm 1 "
+            "or --dtype float32"
         )
 
 
@@ -226,28 +234,36 @@ def run_benchmark(
     shape,
     sigma: int = AUTO_TUNED_SIGMA,
     num_run: int = 50,
-    device=None,
+    device=DEFAULT_DEVICE,
     num_rhs: int = 1,
+    autotune: bool = False,
 ) -> BenchResult:
-    """Benchmark CSR5 SpMV (K1) or, with ``num_rhs > 1``, SpMM (K2) on one
-    matrix, on ``device`` (default: the card when present). X is (n, R)
-    integers 1-9 from ``default_rng(0)`` for SpMM (``harness.py:169-172``).
-    Values are stored as bfloat16 only when that is lossless
-    (``value_dtype="auto"``)."""
-    _float32_only(values)
+    """Benchmark CSR5 SpMV (K1, or K4 on float64 values) or, with
+    ``num_rhs > 1``, SpMM (K2) on one matrix, on ``device`` (default: the
+    card). x holds integers 1-9 from ``default_rng(0)`` in the values'
+    dtype; X is (n, R) for SpMM (``harness.py:169-172``). float32 values
+    are stored as bfloat16 only when that is lossless
+    (``value_dtype="auto"``); float64 values keep a float64 plane.
+    ``autotune`` converts with :func:`..ops.convert.build_csr5_autotuned`
+    unless ``sigma`` is given."""
+    _check_values(values, "csr5", num_rhs)
     m, n = shape
-    device = default_device() if device is None else torch.device(device)
+    device = resolve_device(device, "run_benchmark")
     R = num_rhs
     x = np.random.default_rng(0).integers(1, 10, size=(n, R) if R > 1 else n)
     x = x.astype(values.dtype)
     progress.emit("golden")
     y_ref = sp.csr_matrix((values, col_idx, row_ptr), shape=shape) @ x
 
+    vdt = torch.float64 if values.dtype == np.float64 else "auto"
+
     def build():
         cfg = CSR5Config(sigma=compute_sigma(m, int(row_ptr[-1]), sigma))
-        a5 = convert.build_csr5(
-            (row_ptr, col_idx, values, shape), cfg, value_dtype="auto", device=device
-        )
+        host = (row_ptr, col_idx, values, shape)
+        if autotune and sigma == AUTO_TUNED_SIGMA:
+            a5 = convert.build_csr5_autotuned(host, cfg, value_dtype=vdt, device=device)
+        else:
+            a5 = convert.build_csr5(host, cfg, value_dtype=vdt, device=device)
         phases = dict(convert.last_convert_phases)
         return a5, a5.sigma, _dtype_name(a5.val_tiles), "", phases
 
@@ -263,14 +279,14 @@ def run_dia(
     shape,
     num_rhs: int = 1,
     num_run: int = 50,
-    device=None,
+    device=DEFAULT_DEVICE,
 ) -> BenchResult:
     """Benchmark DIA SpMV (K5) or, with ``num_rhs > 1``, SpMM (K6) on one
     matrix: the JAX CLI's ``_run_dia`` (``cli.py:257-314``). x holds
     integers 1-9 from ``default_rng(0)``, shaped (n, R) for SpMM; the plane
     is float32, as the JAX path builds it."""
-    _float32_only(values)
-    device = default_device() if device is None else torch.device(device)
+    _check_values(values, "dia", num_rhs)
+    device = resolve_device(device, "run_dia")
     R = num_rhs
     x = np.random.default_rng(0).integers(1, 10, (shape[1], R) if R > 1 else shape[1])
     x = x.astype(values.dtype)
@@ -299,13 +315,13 @@ def run_hyb(
     values: np.ndarray,
     shape,
     num_run: int = 50,
-    device=None,
+    device=DEFAULT_DEVICE,
 ) -> BenchResult:
     """Benchmark HYB5 SpMV (K5 on the dense diagonals plus K1 on the
     remainder) on one matrix: the JAX CLI's ``_run_hyb``
     (``cli.py:218-254``)."""
-    _float32_only(values)
-    device = default_device() if device is None else torch.device(device)
+    _check_values(values, "hyb")
+    device = resolve_device(device, "run_hyb")
     x = np.random.default_rng(0).integers(1, 10, shape[1]).astype(values.dtype)
     progress.emit("golden")
     y_ref = sp.csr_matrix((values, col_idx, row_ptr), shape=shape) @ x
@@ -329,14 +345,14 @@ def run_bandblock(
     shape,
     num_rhs: int = 1,
     num_run: int = 50,
-    device=None,
+    device=DEFAULT_DEVICE,
 ) -> BenchResult:
     """Benchmark band-block SpMM (K7) on one matrix: the JAX CLI's
     ``_run_bandblock`` (``cli.py:171-215``). X is (n, R) integers 1-9
     from ``default_rng(0)``; the plane's dtype follows the lossless
     bfloat16 gate and ``precision="auto"`` follows the plane."""
-    _float32_only(values)
-    device = default_device() if device is None else torch.device(device)
+    _check_values(values, "bandblock", num_rhs)
+    device = resolve_device(device, "run_bandblock")
     R = max(num_rhs, 1)
     x = np.random.default_rng(0).integers(1, 10, (shape[1], R)).astype(values.dtype)
     progress.emit("golden")

@@ -83,6 +83,24 @@ class CSR5Config:
             )
 
 
+#: where the port's builders, handle and harness put their data unless
+#: the caller names another device: the card
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as a :class:`torch.device`. A CUDA device when no card is
+    present raises, naming the ``device`` argument: nothing carries on on
+    the CPU unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: device={str(device)!r} but no CUDA device is available; "
+            "pass device='cpu' to run the plain versions on the CPU"
+        )
+    return device
+
+
 def compute_sigma(m: int, nnz: int, sigma: int = AUTO_TUNED_SIGMA) -> int:
     """Sigma auto-tune heuristic, unchanged from the JAX package.
 

@@ -7,7 +7,9 @@ flax pytrees, the port stores plain dataclasses; all tensors of a matrix
 live on one device.
 
 :func:`csr5_from_numpy` and :func:`csr5_to_numpy` carry a converted
-matrix across between the two packages as numpy planes;
+matrix across between the two packages as numpy planes (float64 value
+planes included); :func:`csr5_from_df64` builds the float64 plane from
+a JAX double-single matrix;
 :func:`dia_from_numpy` and :func:`dia_to_numpy` do the same for a DIA
 matrix, and a HYB matrix crosses as its two parts.
 """
@@ -20,7 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import CSR5Config
+from ..config import DEFAULT_DEVICE, CSR5Config, resolve_device
 from ..ops.dia import DIAMatrix
 
 #: the static (non-tensor) fields of a DIA matrix, as the JAX
@@ -137,7 +139,7 @@ class CSR5Matrix:
     empty_offset: torch.Tensor  # (num_offsets,) int32
 
     col_idx_tiles: Optional[torch.Tensor]  # (p, sigma, omega) int32
-    val_tiles: torch.Tensor  # (p, sigma, omega) float32 or bfloat16
+    val_tiles: torch.Tensor  # (p, sigma, omega) float32, bfloat16 or float64
 
     pages: torch.Tensor  # (p, pmax) int32
     page_cnt: torch.Tensor  # (p,) int32
@@ -210,7 +212,7 @@ def _to_tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def csr5_from_numpy(planes: dict, static: dict, device="cpu") -> CSR5Matrix:
+def csr5_from_numpy(planes: dict, static: dict, device=DEFAULT_DEVICE) -> CSR5Matrix:
     """Build the port's :class:`CSR5Matrix` from numpy planes.
 
     ``planes`` maps each name of :data:`PLANE_FIELDS` to an array (or
@@ -219,9 +221,12 @@ def csr5_from_numpy(planes: dict, static: dict, device="cpu") -> CSR5Matrix:
     dict of :class:`CSR5Config` fields or a config object, and an optional
     ``value_dtype`` (``"bfloat16"``/``"float32"``) that the value plane is
     cast to. A matrix the JAX package converted crosses as
-    ``{f: np.asarray(getattr(a5, f))}``. A missing raw column plane is
+    ``{f: np.asarray(getattr(a5, f))}``; a float64 value plane (the JAX
+    package under x64) stays float64. A missing raw column plane is
     decoded from ``col_packed``: the port's kernel streams raw columns.
+    The planes go to ``device`` (default: the card).
     """
+    device = resolve_device(device, "csr5_from_numpy")
     cfg = static["config"]
     if not isinstance(cfg, CSR5Config):
         fields = cfg if isinstance(cfg, dict) else dataclasses.asdict(cfg)
@@ -241,11 +246,30 @@ def csr5_from_numpy(planes: dict, static: dict, device="cpu") -> CSR5Matrix:
     return a5
 
 
-def dia_from_numpy(data, static: dict, device="cpu") -> DIAMatrix:
+def csr5_from_df64(planes: dict, lo_plane, static: dict, device=DEFAULT_DEVICE) -> CSR5Matrix:
+    """The port's float64 :class:`CSR5Matrix` from a JAX ``DF64CSR5``.
+
+    ``planes`` and ``static`` are the numpy planes and static fields of
+    the df64 matrix's ``a5`` (its float32 hi plane and all the
+    structure), as :func:`csr5_from_numpy` takes them; ``lo_plane`` is
+    ``np.asarray(d.val_lo_tiles)``. The value plane is
+    ``f64(hi) + f64(lo)``, exact in float64. That is the df64
+    representation of the matrix, about 2^-48 from the original float64
+    values (``csr5_df64.split_f64``), not the original values.
+    """
+    hi = np.asarray(planes["val_tiles"], np.float64)
+    vals = hi + np.asarray(lo_plane, np.float64)
+    static = {k: v for k, v in static.items() if k != "value_dtype"}
+    return csr5_from_numpy({**planes, "val_tiles": vals}, static, device)
+
+
+def dia_from_numpy(data, static: dict, device=DEFAULT_DEVICE) -> DIAMatrix:
     """Build the port's :class:`..ops.dia.DIAMatrix` from a numpy value
     plane and the static fields of :data:`DIA_STATIC_FIELDS`. A matrix
     the JAX package built crosses as ``np.asarray(d.data)`` and
-    ``{f: getattr(d, f)}``; a bfloat16 plane keeps its dtype."""
+    ``{f: getattr(d, f)}``; a bfloat16 plane keeps its dtype. The plane
+    goes to ``device`` (default: the card)."""
+    device = resolve_device(device, "dia_from_numpy")
     return DIAMatrix(
         shape=tuple(int(v) for v in static["shape"]),
         offsets=tuple(int(o) for o in static["offsets"]),

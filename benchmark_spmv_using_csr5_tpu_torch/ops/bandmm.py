@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import DEFAULT_DEVICE, resolve_device
 from ..utils import nativelib, progress
 from ..utils.hostmem import arena_take
 from .convert import _as_host_csr, _bf16_roundtrip_exact
@@ -136,9 +137,9 @@ def build_bandblock(
     max_k: int = MAX_K,
     max_bytes_ratio: float = MAX_BYTES_RATIO,
     value_dtype: Optional[torch.dtype] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> Optional[BandBlockMatrix]:
-    """CSR -> dense band-block form on ``device``, or None when the
+    """CSR -> dense band-block form on ``device`` (default: the card), or None when the
     matrix's 128-row blocks have no bounded column windows (uniform window
     width K <= ``max_k`` and float32 dense bytes <= ``max_bytes_ratio`` x
     the 8 B/nnz CSR5 stream; ``bandmm.py:104-202``). ``csr`` is
@@ -150,6 +151,7 @@ def build_bandblock(
     ``torch.bfloat16`` forces it. Duplicate (row, col) entries keep the
     last value, as the JAX fill does. Phases land in
     :data:`last_build_phases`."""
+    device = resolve_device(device, "build_bandblock")
     progress.emit("bandmm:build")
     ph = {}
     t = time.perf_counter()

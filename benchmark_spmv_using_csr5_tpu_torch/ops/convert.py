@@ -9,24 +9,28 @@ element. What differs is the value dtype and the upload:
 
 - the raw int32 column plane is always kept (the JAX package's
   ``keep_raw_cols=True``): the port's kernel streams raw columns;
-- float64 values narrow to float32 explicitly (float64 SpMV is a later
-  kernel);
+- float64 values narrow to float32 unless ``value_dtype=torch.float64``
+  keeps the float64 plane that kernel K4 streams (the JAX x64 plane; its
+  float32 rounding is the JAX df64 hi plane);
 - ``value_dtype="auto"`` stores bfloat16 only when every value survives
   float32 -> bfloat16 -> float32 unchanged (results are then identical to
   float32 storage);
 - every plane is copied onto ``device``: the host planes live in the
-  reused arena of :mod:`..utils.hostmem`.
+  reused arena of :mod:`..utils.hostmem`;
+- :func:`build_csr5_autotuned` decides its sigma from the host plan, so
+  a re-tune transposes and uploads once.
 """
 
 from __future__ import annotations
 
 import time
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import AUTO_TUNED_SIGMA, CSR5Config, compute_sigma
+from ..config import AUTO_TUNED_SIGMA, DEFAULT_DEVICE, CSR5Config, compute_sigma, resolve_device
 from ..models.formats import CSR5Matrix, CSRMatrix, col_tiles_of
 from ..utils import nativelib, progress
 from ..utils.hostmem import arena_take
@@ -156,44 +160,37 @@ def _upload(arr: np.ndarray, device, dtype: Optional[torch.dtype] = None) -> tor
     return t.to(device=device, dtype=dtype, copy=True)
 
 
-def build_csr5(
-    csr,
-    config: Optional[CSR5Config] = None,
-    sigma: int = AUTO_TUNED_SIGMA,
-    value_dtype=None,
-    win_mode: str = "auto",
-    device="cpu",
-) -> CSR5Matrix:
-    """CSR -> CSR5: the asCSR5() analogue (anonymouslib_cuda.h:106-220).
+class _Phases:
+    """Phase timings (ms) of one conversion, summed by phase name."""
 
-    ``csr`` may be a CSRMatrix, a scipy.sparse CSR matrix, or a host tuple
-    ``(row_ptr, col_idx, values, shape)``. ``value_dtype`` is None (the
-    input dtype, float64 narrowed to float32), ``torch.float32``,
-    ``torch.bfloat16``, or ``"auto"``: bfloat16 only when it is lossless.
-    ``win_mode="aligned"`` builds 128-aligned window maps instead of the
-    wrapped ones. Every plane is placed on ``device``.
-    """
-    row_ptr, col_idx, values, (m, n) = _as_host_csr(csr)
-    device = torch.device(device)
-    nnz = int(values.shape[0])
-    if config is None:
-        config = CSR5Config(sigma=compute_sigma(m, nnz, sigma))
-    elif sigma != AUTO_TUNED_SIGMA and sigma != config.sigma:
-        config = CSR5Config(
-            omega=config.omega, sigma=sigma, tiles_per_block=config.tiles_per_block
-        )
-    omega, sig = config.omega, config.sigma
-    T = config.tile_nnz
-    _ph = {}
-    _t0 = time.perf_counter()
+    def __init__(self):
+        self.ms: dict = {}
+        self._t0 = time.perf_counter()
 
-    def _mark(name):
-        nonlocal _t0
+    def mark(self, name: str) -> None:
         now = time.perf_counter()
-        _ph[name] = _ph.get(name, 0.0) + (now - _t0) * 1e3
-        _t0 = now
+        self.ms[name] = self.ms.get(name, 0.0) + (now - self._t0) * 1e3
+        self._t0 = now
         progress.emit(f"convert:{name}")
 
+
+def _config_for(m: int, nnz: int, config: Optional[CSR5Config], sigma: int) -> CSR5Config:
+    if config is None:
+        return CSR5Config(sigma=compute_sigma(m, nnz, sigma))
+    if sigma != AUTO_TUNED_SIGMA and sigma != config.sigma:
+        return CSR5Config(omega=config.omega, sigma=sigma, tiles_per_block=config.tiles_per_block)
+    return config
+
+
+def _host_plan(row_ptr, col_idx, values, m: int, n: int, config: CSR5Config, win_mode: str,
+               ph: _Phases) -> SimpleNamespace:
+    """The host stages of the conversion, before the tile transpose and
+    the upload: tile pointers, dirty bits, descriptor, empty-row offsets,
+    the JAX gather plan, packed column codes and window maps. The planes
+    live in the host arena until the next conversion."""
+    nnz = int(values.shape[0])
+    omega, sig = config.omega, config.sigma
+    T = config.tile_nnz
     p = max(1, -(-nnz // T))  # every tile padded; tail is the last tile
     # pad the tile count to a multiple of the JAX kernel's block size
     # (the quantum shrinks to the next pow2 >= p for small matrices)
@@ -214,7 +211,7 @@ def build_csr5(
     else:
         col_flat[:] = 0
 
-    _mark("malloc")
+    ph.mark("malloc")
     # --- partition pointer + dirty bits (format_cuda.h:21-95) ----------
     bounds = np.arange(p_pad + 1, dtype=np.int64) * T
     tile_ptr = np.clip(np.searchsorted(row_ptr, bounds, side="right") - 1, 0, m)
@@ -230,7 +227,7 @@ def build_csr5(
     dirty = (e_prefix[stop + 1] - e_prefix[np.minimum(start + 1, m)]) > 0
     tail_row_start = int(tile_ptr[p - 1])
 
-    _mark("tile_ptr")
+    ph.mark("tile_ptr")
     # --- bit flags + descriptor (format_cuda.h:129-267) -----------------
     # element order in a tile is lane-major: flat index t*T + l*sig + s
     nd = nativelib.descriptor(row_ptr, p_pad, sig, omega)
@@ -254,7 +251,7 @@ def build_csr5(
             row_ptr, heads_forced, dirty, tile_ptr[:-1], nseg, p_pad, T
         )
 
-    _mark("tile_desc")
+    ph.mark("tile_desc")
     # --- the JAX kernel's gather plan (convert.py:340-449) --------------
     # per-tile distinct x-page lists; dead slots hold the sentinel page
     # n_pad//128. The port's kernel reads x directly, but the planes are
@@ -377,7 +374,23 @@ def build_csr5(
     np.equal(d, off_all, out=fmask)
     np.add(win_map, 1 << 23, out=win_map, where=fmask)
 
-    _mark("plan")
+    ph.mark("plan")
+    return SimpleNamespace(
+        m=m, n=n, nnz=nnz, config=config, p_pad=p_pad, nnz_pad=nnz_pad,
+        col_flat=col_flat, val_flat=val_flat, row_ptr=row_ptr, tile_ptr=tile_ptr,
+        dirty=dirty, tail_row_start=tail_row_start, bit_flag=bit_flag,
+        y_offset=y_offset, seg_offset=seg_offset, eo_ptr=eo_ptr, eo=eo,
+        pages=pages, page_cnt=page_cnt, pages_contig=pages_contig, pmax=pmax,
+        col16=col16, win_map=win_map, win_rel=win_rel, capw=capw, n_pad=n_pad,
+    )
+
+
+def _transpose_upload(hp: SimpleNamespace, values, value_dtype, device, ph: _Phases) -> CSR5Matrix:
+    """The AoS->SoA tile transpose of a host plan and the copy of every
+    plane onto ``device``; records the phases in
+    :data:`last_convert_phases`."""
+    p_pad, nnz_pad, sig, omega = hp.p_pad, hp.nnz_pad, hp.config.sigma, hp.config.omega
+    col_flat, val_flat, col16 = hp.col_flat, hp.val_flat, hp.col16
     # --- AoS->SoA tile transpose (format_cuda.h:525-744) ----------------
     if value_dtype == "auto":
         value_dtype = (
@@ -386,10 +399,13 @@ def build_csr5(
             and _bf16_roundtrip_exact(values)
             else None
         )
-    # numpy has no bfloat16: transpose the float32 plane, cast on upload
+    # numpy has no bfloat16: transpose the float32 plane, cast on upload.
+    # float64 stays float64 only when value_dtype asks for it (K4's plane)
+    keep64 = value_dtype == torch.float64
     val_host = val_flat
-    if val_flat.dtype == np.float64:
-        val_host = arena_take(nnz_pad, np.float32, "cv:valcast", zero=False)
+    if (val_flat.dtype == np.float64) != keep64:
+        host_dt = np.float64 if keep64 else np.float32
+        val_host = arena_take(nnz_pad, host_dt, "cv:valcast", zero=False)
         np.copyto(val_host, val_flat, casting="unsafe")
     vdt = value_dtype if value_dtype is not None else torch.from_numpy(val_host[:0]).dtype
 
@@ -400,7 +416,7 @@ def build_csr5(
         if col16 is not None
         else None
     )
-    _mark("transpose")  # host work only; the copies to device time as "upload"
+    ph.mark("transpose")  # host work only; the copies to device time as "upload"
 
     def _tiles(flat_tr, flat, dtype=None):
         if flat_tr is not None:
@@ -427,46 +443,107 @@ def build_csr5(
             )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    _mark("upload")
+    ph.mark("upload")
     up_bytes = sum(
         t.numel() * t.element_size()
         for t in (col_tiles, val_tiles, col_packed)
         if t is not None
     )
-    _ph["upload_mb"] = up_bytes / 1e6
-    if _ph.get("upload", 0.0) > 0:
-        _ph["upload_gbps"] = up_bytes / 1e6 / _ph["upload"]
+    ph.ms["upload_mb"] = up_bytes / 1e6
+    if ph.ms.get("upload", 0.0) > 0:
+        ph.ms["upload_gbps"] = up_bytes / 1e6 / ph.ms["upload"]
     last_convert_phases.clear()
-    last_convert_phases.update(_ph)
+    last_convert_phases.update(ph.ms)
     i32 = torch.int32
     return CSR5Matrix(
-        shape=(m, n),
-        config=config,
+        shape=(hp.m, hp.n),
+        config=hp.config,
         num_tiles=p_pad,
-        nnz_stored=nnz,
-        row_ptr=_upload(row_ptr, device, i32),
-        tile_ptr=_upload(tile_ptr, device, i32),
-        tile_dirty=_upload(dirty, device),
-        y_offset=_upload(y_offset, device, i32),
-        seg_offset=_upload(seg_offset, device, i32),
-        bit_flag=_upload(bit_flag, device),
-        empty_offset_ptr=_upload(eo_ptr, device, i32),
-        empty_offset=_upload(eo, device, i32),
+        nnz_stored=hp.nnz,
+        row_ptr=_upload(hp.row_ptr, device, i32),
+        tile_ptr=_upload(hp.tile_ptr, device, i32),
+        tile_dirty=_upload(hp.dirty, device),
+        y_offset=_upload(hp.y_offset, device, i32),
+        seg_offset=_upload(hp.seg_offset, device, i32),
+        bit_flag=_upload(hp.bit_flag, device),
+        empty_offset_ptr=_upload(hp.eo_ptr, device, i32),
+        empty_offset=_upload(hp.eo, device, i32),
         col_idx_tiles=col_tiles,
         val_tiles=val_tiles,
-        pages=_upload(pages, device, i32),
-        page_cnt=_upload(page_cnt, device, i32),
-        win_map=_upload(win_map, device, i32),
+        pages=_upload(hp.pages, device, i32),
+        page_cnt=_upload(hp.page_cnt, device, i32),
+        win_map=_upload(hp.win_map, device, i32),
         col_packed=col_packed,
-        win_rel=win_rel,
-        tail_row_start=tail_row_start,
-        capw=capw,
-        pmax=pmax,
-        pages_contig=pages_contig,
+        win_rel=hp.win_rel,
+        tail_row_start=hp.tail_row_start,
+        capw=hp.capw,
+        pmax=hp.pmax,
+        pages_contig=hp.pages_contig,
         # +128 headroom: wrapped slots write rows up to base+capw+127
-        m_pad=-(-(m + capw + 128) // 1024) * 1024,
-        n_pad=n_pad,
+        m_pad=-(-(hp.m + hp.capw + 128) // 1024) * 1024,
+        n_pad=hp.n_pad,
     )
+
+
+
+
+def build_csr5(
+    csr,
+    config: Optional[CSR5Config] = None,
+    sigma: int = AUTO_TUNED_SIGMA,
+    value_dtype=None,
+    win_mode: str = "auto",
+    device=DEFAULT_DEVICE,
+) -> CSR5Matrix:
+    """CSR -> CSR5: the asCSR5() analogue (anonymouslib_cuda.h:106-220).
+
+    ``csr`` may be a CSRMatrix, a scipy.sparse CSR matrix, or a host tuple
+    ``(row_ptr, col_idx, values, shape)``. ``value_dtype`` is None (the
+    input dtype, float64 narrowed to float32), ``torch.float32``,
+    ``torch.bfloat16``, ``torch.float64`` (the plane of kernel K4: the
+    JAX ``build_csr5`` under x64, ``convert.py:548-553``), or ``"auto"``:
+    bfloat16 only when it is lossless. ``win_mode="aligned"`` builds
+    128-aligned window maps instead of the wrapped ones. Every plane is
+    placed on ``device`` (default: the card).
+    """
+    device = resolve_device(device, "build_csr5")
+    row_ptr, col_idx, values, (m, n) = _as_host_csr(csr)
+    config = _config_for(m, int(values.shape[0]), config, sigma)
+    ph = _Phases()
+    hp = _host_plan(row_ptr, col_idx, values, m, n, config, win_mode, ph)
+    return _transpose_upload(hp, values, value_dtype, device, ph)
+
+
+def build_csr5_autotuned(
+    csr,
+    config: Optional[CSR5Config] = None,
+    value_dtype=None,
+    win_mode: str = "auto",
+    device=DEFAULT_DEVICE,
+) -> CSR5Matrix:
+    """CSR -> CSR5 with the JAX package's structure-aware sigma re-tune
+    (``convert.py:700-732``): when the heuristic sigma lands in the
+    scattered gather tiers (pages not contiguous), sigma 8 (heuristic
+    sigma <= 16: short scattered rows) or 16 (longer rows) replaces it.
+
+    Same sigma and planes as the JAX function, which converts and
+    uploads twice. Here the regime is read from the host plan's
+    ``pages_contig``, before the transpose and the upload, so a re-tune
+    plans again but transposes and uploads once.
+    """
+    device = resolve_device(device, "build_csr5_autotuned")
+    row_ptr, col_idx, values, (m, n) = _as_host_csr(csr)
+    config = _config_for(m, int(values.shape[0]), config, AUTO_TUNED_SIGMA)
+    ph = _Phases()
+    hp = _host_plan(row_ptr, col_idx, values, m, n, config, win_mode, ph)
+    if not hp.pages_contig:
+        target = 8 if config.sigma <= 16 else 16
+        if config.sigma != target:
+            config = CSR5Config(
+                omega=config.omega, sigma=target, tiles_per_block=config.tiles_per_block
+            )
+            hp = _host_plan(row_ptr, col_idx, values, m, n, config, win_mode, ph)
+    return _transpose_upload(hp, values, value_dtype, device, ph)
 
 
 def csr5_to_csr(a5: CSR5Matrix) -> CSRMatrix:

@@ -116,9 +116,9 @@ def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
             "csr5_spmv_torch"
         )
     if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"csr5_spmv_cuda: x dtype {x.dtype}; only float32 runs here "
-            "(float64 is kernel K4, ROADMAP queue 1 item 7)"
+        raise ValueError(
+            f"csr5_spmv_cuda: x dtype {x.dtype}; K1 takes float32 (float64 on a "
+            "float64 plane runs on K4, csr5_spmv_f64_cuda)"
         )
     if a5.omega != LANES:
         raise ValueError(f"csr5_spmv_cuda: omega={a5.omega}, the kernel takes {LANES}")
@@ -208,9 +208,9 @@ def csr5_spmm_cuda(
     if layout not in ("nr", "rn"):
         raise ValueError(f"{who}: unknown layout {layout!r} (nr|rn)")
     if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{who}: x dtype {x.dtype}; only float32 runs here "
-            "(float64 is kernel K4, ROADMAP queue 1 item 7)"
+        raise ValueError(
+            f"{who}: x dtype {x.dtype}; K2 takes float32 (no float64 SpMM exists, "
+            "in the JAX package or the reference)"
         )
     if x.dim() != 2:
         raise ValueError(f"{who}: X must be 2-D, got shape {tuple(x.shape)}")

@@ -9,9 +9,13 @@
   ``csr5_spmm_xla`` (``csr5_spmv.py:90-96``): the same steps with the R
   right-hand sides as a trailing dimension.
 - :func:`csr5_spmv` and :func:`csr5_spmm`: the dispatchers. CUDA tensors
-  go through the hand-written kernels (:mod:`.csr5_kernel`), CPU tensors
-  through the plain versions. Nothing else: a CUDA tensor never reaches a
-  plain version through them.
+  go through the hand-written kernels, by dtype: float32 x to K1 or K2
+  (:mod:`.csr5_kernel`), float64 x on a float64 plane to K4
+  (:mod:`.csr5_f64`). CPU tensors go through the plain versions, which
+  are dtype-generic: :func:`csr5_spmv_torch` on float64 is K4's plain
+  version. Nothing else: a CUDA tensor never reaches a plain version
+  through them, and a float64 x never meets a float32 or bfloat16 plane
+  (or the reverse): that raises instead of casting.
 """
 
 from __future__ import annotations
@@ -80,14 +84,33 @@ def csr5_spmv_torch(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     return csr5_spmm_torch(a5, x[:, None], alpha)[:, 0]
 
 
+def _is_f64(a5: CSR5Matrix, x: torch.Tensor, who: str) -> bool:
+    """True for a float64 x on a float64 plane; raises when one of the two
+    is float64 and the other is not."""
+    x64, p64 = x.dtype == torch.float64, a5.val_tiles.dtype == torch.float64
+    if x64 != p64:
+        raise ValueError(
+            f"{who}: x is {x.dtype} and the value plane {a5.val_tiles.dtype}; float64 x "
+            "needs a float64 plane (build_csr5(..., value_dtype=torch.float64)) and a "
+            "float32 or bfloat16 plane needs float32 x: nothing is cast"
+        )
+    return x64
+
+
 def csr5_spmv(
     a5: CSR5Matrix, x: torch.Tensor, alpha=1.0, backend: str = "auto"
 ) -> torch.Tensor:
-    """Dispatching spmv(): K1 for CUDA tensors, the plain version for CPU
-    tensors. ``backend`` names the path the caller expects: ``"auto"``
-    follows the device, ``"cuda"`` requires CUDA tensors and ``"torch"``
-    CPU tensors; a mismatch raises instead of changing path."""
+    """Dispatching spmv(): K1 (float32 x) or K4 (float64 x on a float64
+    plane) for CUDA tensors, the plain version for CPU tensors.
+    ``backend`` names the path the caller expects: ``"auto"`` follows the
+    device, ``"cuda"`` requires CUDA tensors and ``"torch"`` CPU tensors;
+    a mismatch raises instead of changing path."""
+    f64 = _is_f64(a5, x, "csr5_spmv")
     if _on_cuda(x, backend):
+        if f64:
+            from .csr5_f64 import csr5_spmv_f64_cuda
+
+            return csr5_spmv_f64_cuda(a5, x, alpha)
         from .csr5_kernel import csr5_spmv_cuda
 
         return csr5_spmv_cuda(a5, x, alpha)
@@ -98,7 +121,15 @@ def csr5_spmm(
     a5: CSR5Matrix, x: torch.Tensor, alpha=1.0, backend: str = "auto", layout: str = "nr"
 ) -> torch.Tensor:
     """Dispatching SpMM (``csr5_spmv.py:99-114``): K2 for CUDA tensors,
-    the plain version for CPU tensors, in either layout."""
+    the plain version for CPU tensors, in either layout. float32 only:
+    float64 raises, since neither the JAX Pallas path nor the reference
+    has a float64 SpMM (``csr5_df64.py:48-49``)."""
+    if x.dtype == torch.float64 or a5.val_tiles.dtype == torch.float64:
+        raise ValueError(
+            f"csr5_spmm: x is {x.dtype} and the value plane {a5.val_tiles.dtype}; there "
+            "is no float64 SpMM (neither the JAX Pallas path nor the reference has one): "
+            "run csr5_spmv on each column, or use float32"
+        )
     if _on_cuda(x, backend):
         from .csr5_kernel import csr5_spmm_cuda
 

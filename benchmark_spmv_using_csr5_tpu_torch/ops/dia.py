@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import DEFAULT_DEVICE, resolve_device
 LANES = 128
 #: hard cap on stored diagonals (the JAX package's gate; the kernels keep
 #: the offsets in shared memory and take any count up to it)
@@ -123,7 +124,7 @@ def build_dia(
     min_fill: float = MIN_FILL,
     value_dtype=None,
     layout: str = "interleaved",
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> Optional[DIAMatrix]:
     """CSR -> DIA, or None when the matrix is not diagonal-structured
     (``dia.py:105-194``).
@@ -132,8 +133,9 @@ def build_dia(
     ``value_dtype`` is None (the input dtype, float64 narrowed to
     float32), ``torch.float32``, ``torch.bfloat16``, or ``"auto"``:
     bfloat16 only when the summed plane is lossless in it. The plane is
-    copied onto ``device``.
+    copied onto ``device`` (default: the card).
     """
+    device = resolve_device(device, "build_dia")
     row_ptr, col_idx, values, (m, n) = _as_host(csr)
     nnz = int(values.shape[0])
     if nnz == 0:

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import CSR5Config
+from ..config import DEFAULT_DEVICE, CSR5Config, resolve_device
 from ..models.formats import CSR5Matrix
 from .convert import build_csr5
 from .csr5_spmv import csr5_spmm, csr5_spmv
@@ -53,7 +53,7 @@ def build_hyb(
     diag_fill: float = 0.5,
     max_diags: int = MAX_DIAGS,
     config: Optional[CSR5Config] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> HYBMatrix:
     """Split nonzeros into dense diagonals (DIA) and the rest (CSR5)
     (``hyb.py:67-136``).
@@ -62,8 +62,9 @@ def build_hyb(
     maximum possible length; the densest ``max_diags`` qualify. Either
     side may come out empty, and the field is then None. Both parts keep
     the input's value dtype (float64 narrowed to float32) and go to
-    ``device``.
+    ``device`` (default: the card).
     """
+    device = resolve_device(device, "build_hyb")
     row_ptr, col_idx, values, (m, n) = _as_host(csr)
     nnz = int(values.shape[0])
     if nnz == 0:

@@ -1,6 +1,7 @@
 """Synthetic sparse-matrix generators for tests and benchmarks.
 
-Copied unchanged from ``benchmark_spmv_using_csr5_tpu/utils/synth.py``:
+Copied unchanged from ``benchmark_spmv_using_csr5_tpu/utils/synth.py``,
+plus :func:`f64_banded` from the JAX bench's ``case_runner.py``:
 the JAX package cannot be imported without jax and flax, which the
 port does not depend on.
 
@@ -99,6 +100,19 @@ def banded(m: int, bandwidth: int = 27, dtype=np.float64, seed: int = 0) -> sp.c
     a = sp.csr_matrix((values, col_idx, row_ptr), shape=(m, m))
     a.has_sorted_indices = True
     a.has_canonical_format = True
+    return a
+
+
+def f64_banded(m: int, bw: int, seed: int = 0) -> sp.csr_matrix:
+    """Banded with full-precision float64 values (non-dyadic, 3-decade
+    spread): the JAX bench's ``df64_banded500k`` matrix at
+    ``f64_banded(500_000, 27)``, copied from
+    ``benchmark_spmv_using_csr5_tpu/bench/case_runner.py:44-55``
+    (``_f64_banded``). Integer values would be exact in float32 and hide
+    the float64 kernel's precision."""
+    a = sp.csr_matrix(banded(m, bw, dtype=np.float64))
+    rng = np.random.default_rng(seed)
+    a.data = rng.uniform(0.1, 1.0, a.nnz) * 10.0 ** rng.integers(-1, 2, a.nnz)
     return a
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main paths once on one card: CSR5 SpMV,
-the structural formats (DIA, HYB5, ``--format auto``) and the
-multi-right-hand-side path (``--spmm K``: CSR5 SpMM, band-block SpMM).
+the structural formats (DIA, HYB5, ``--format auto``), the
+multi-right-hand-side path (``--spmm K``: CSR5 SpMM, band-block SpMM) and
+the float64 path (``--dtype float64``, the SpMVHandle, the solvers).
 
 Run from the root of the repository, with one NVIDIA GPU visible:
 
@@ -10,8 +11,9 @@ Run from the root of the repository, with one NVIDIA GPU visible:
 Phases, each of which must pass:
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc builds of
-   every source under ``csrc/`` (``csr5_spmv.cu``, ``csr5_spmm.cu``,
-   ``dia_spmv.cu``, ``bandmm.cu``) from the checkout, all started at once;
+   every source under ``csrc/`` (``csr5_spmv.cu``, ``csr5_spmv_f64.cu``,
+   ``csr5_spmm.cu``, ``dia_spmv.cu``, ``bandmm.cu``) from the checkout,
+   all started at once;
 2. kernel K1 against its plain PyTorch version on the card and against
    scipy, on the odd shapes of the TPU sweep (``scripts/smoke_chip.py``):
    one tile, few tiles, every sigma, aligned maps, a scattered band, a
@@ -54,7 +56,23 @@ Phases, each of which must pass:
    float64 oracle, and a forced bfloat16 plane within 1 %;
 9. K2, K6 and K7 at R = 8 on the same banded500k matrix and X, and K7 at
    R = 16, in turns with their plain versions, and their device times by
-   ``torch.profiler``: the card's own SpMM crossover.
+   ``torch.profiler``: the card's own SpMM crossover;
+10. kernel K4 (float64 CSR5 SpMV) against its plain version and scipy
+    float64 on the odd shapes of phase 2: exact on integer data at alpha 1
+    and -1.75, within T * 2^-53 of the row's tile mass on non-dyadic
+    values, and a float32 x refused;
+11. the float64 path at full width: ``--dtype float64`` on example.mtx
+    and banded500k (PASS, max rel err 0.0) and on df64_banded500k (max rel
+    err against scipy float64 at most 1e-12), the SpMVHandle at banded500k
+    in float32 and float64 (spmv against scipy, asCSR round trip,
+    setSigma, destroy), and the solvers on a 500,000-row SPD matrix:
+    iterative refinement (K1 inner CG, K4 residual) to at most 1e-10
+    relative residual and 10x below float32-only CG, with the launches of
+    K4 and K1 over that run;
+12. K4 and its plain version at df64_banded500k in turns, its device
+    time, the library yardstick (``torch.sparse_csr_tensor @ x``, cuSPARSE
+    through PyTorch, used nowhere in the port) beside every kernel, and
+    each kernel's bound from this run's inputs.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails. The last line of standard output is
@@ -82,17 +100,60 @@ K2_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_kernel.py:227"
 K2_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/csr5_spmm.cu"
 K7_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/bandmm.py:243"
 K7_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/bandmm.cu"
+#: K4's TPU original (the double-single kernel) and source
+K4_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_df64.py:281"
+K4_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/csr5_spmv_f64.cu"
 #: every CUDA source of the port, built at once in phase 1
-SOURCES = ("csr5_spmv", "csr5_spmm", "dia_spmv", "bandmm")
+SOURCES = ("csr5_spmv", "csr5_spmv_f64", "csr5_spmm", "dia_spmv", "bandmm")
+#: peak rates of one H100 SXM outside the tensor cores (NVIDIA's data
+#: sheet, at the full 700 W): float32 and float64 FLOP/s, for the bounds
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: right-hand-side counts of the SpMM sweep
 SWEEP_RHS = (1, 2, 5, 8, 16, 17)
 #: rtol of the random-float case against the row's absolute sum: the
 #: kernel and the plain version sum the tile prefix in another order
 FLOAT_RTOL = 1e-5
+#: K4 on non-integer data, against its plain version and scipy float64:
+#: within T * 2^-53 of the |A||x| mass of the row's tiles (T = sigma * 128
+#: products per tile), the classical bound of a prefix sum of T terms,
+#: which both K4's lane scan and the plain version's cumsum meet
+K4_ULP = 2.0**-53
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors (None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(moved: int, flops: float, gbps: float, peak: float):
+    """(ms, "bytes" or "operations"): the least time of a call that moves
+    ``moved`` bytes (each input read once, each output written once) and
+    does ``flops`` operations, on a card of ``gbps`` GB/s and ``peak``
+    FLOP/s; whichever of the two takes longer sets it."""
+    t_bytes = moved / (gbps * 1e9) * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tile_scale(np, a, x, sigma):
+    """Per row, max(|A||x| of the row, the largest |A||x| mass of the
+    tiles the row spans): what a prefix-difference method's error scales
+    with (``tests/test_df64.py::_tile_scale``)."""
+    T = sigma * 128
+    prods = np.abs(a.data) * np.abs(x)[a.indices]
+    nt = max(1, -(-len(prods) // T))
+    pad = np.zeros(nt * T)
+    pad[: len(prods)] = prods
+    mass = pad.reshape(nt, T).sum(axis=1)
+    rp = a.indptr
+    t0 = np.minimum(rp[:-1] // T, nt - 1)
+    t1 = np.minimum(np.maximum(rp[1:] - 1, rp[:-1]) // T, nt - 1)
+    row = abs(a) @ np.abs(x)
+    return np.maximum(np.maximum(row, np.maximum(mass[t0], mass[t1])), 1e-300)
 
 
 def sweep_cases(synth, CSR5Config):
@@ -400,7 +461,7 @@ def crossover(dev, card, kind, a5, auto_res, spmm_res, x):
     )
     say("[banded500k device time by torch.profiler, us per launch] " + ", ".join(
         f"{k} {'not measured' if v is None else f'{v:.2f}'}" for k, v in dev_us.items()))
-    return t
+    return t, xm
 
 
 def _exact(y_k, y_p, y_s) -> bool:
@@ -686,7 +747,296 @@ def spmm_crossover(dev, card, a5, dia, bb):
         f"X and Y 16.0 MB each at R=8 [{card}]")
     say("[banded500k SpMM device time by torch.profiler, us per launch] " + ", ".join(
         f"{k} {'not measured' if v is None else f'{v:.2f}'}" for k, v in dev_us.items()))
-    return t
+    return t, x8
+
+
+def f64_sweep(dev, rng) -> list:
+    """K4 against its plain version and scipy float64 on the odd shapes
+    of phase 2 (wrapped and aligned maps as the cases give them): exact on
+    integer data at alpha 1 and -1.75; non-dyadic values (7 decades,
+    mixed signs) within T * 2^-53 of the row's tile mass at alpha -1.75;
+    an f32 x on the f64 plane refused."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
+    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+
+    f64 = torch.float64
+    failed = []
+    worst = 0.0
+    for name, a_sp, cfg, win_mode in sweep_cases(synth, CSR5Config):
+        a = sp.csr_matrix(a_sp).astype(np.float64)
+        a5 = build_csr5(a, cfg, value_dtype=f64, win_mode=win_mode, device=dev)
+        x = rng.integers(1, 10, a.shape[1]).astype(np.float64)
+        xd = torch.from_numpy(x).to(dev)
+        errs = []
+        for alpha in (1.0, -1.75):
+            y_k = csr5_f64.csr5_spmv_f64_cuda(a5, xd, alpha).cpu()
+            y_p = csr5_spmv_torch(a5, xd, alpha).cpu()
+            if not _exact(y_k, y_p, torch.from_numpy(alpha * (a @ x))):
+                errs.append(f"integer alpha={alpha}")
+        af = a.copy()
+        af.data = (rng.uniform(0.1, 1.0, af.nnz) * 10.0 ** rng.integers(-3, 4, af.nnz)
+                   * rng.choice([-1.0, 1.0], af.nnz))
+        a5f = build_csr5(af, cfg, value_dtype=f64, win_mode=win_mode, device=dev)
+        xf = rng.uniform(-1.0, 1.0, a.shape[1])
+        xfd = torch.from_numpy(xf).to(dev)
+        y_k = csr5_f64.csr5_spmv_f64_cuda(a5f, xfd, -1.75).cpu().numpy()
+        y_p = csr5_spmv_torch(a5f, xfd, -1.75).cpu().numpy()
+        lim = a5f.sigma * 128 * K4_ULP * 1.75 * tile_scale(np, af, xf, a5f.sigma)
+        ratio = float(max((np.abs(y_k - y_p) / lim).max(), (np.abs(y_k + 1.75 * (af @ xf)) / lim).max()))
+        worst = max(worst, ratio)
+        if ratio > 1.0:
+            errs.append(f"floats {ratio:.3g} of the bound")
+        failed += [f"K4 {name} {e}" for e in errs]
+        say(f"[K4 {name}] {'PASS' if not errs else 'FAIL ' + ','.join(errs)} sigma={a5.sigma} "
+            f"tiles={a5.num_tiles} win={'wrapped' if a5.win_rel else 'aligned'}; floats: "
+            f"{ratio:.3g} of the bound, bit-equal to plain {bool(np.array_equal(y_k, y_p))}")
+    try:
+        csr5_f64.csr5_spmv_f64_cuda(a5, xd.float())
+        failed.append("K4 took a float32 x on a float64 plane")
+    except ValueError as e:
+        say(f"[K4 refuses float32 x on the float64 plane] PASS ({e})")
+    say(f"[K4 sweep] worst float case at {worst:.3g} of T * 2^-53 of the row's tile mass")
+    return failed
+
+
+def f64_path(dev, failed):
+    """The float64 path at full width: ``--dtype float64`` through the
+    CLI on example.mtx, banded500k and df64_banded500k, the SpMVHandle at
+    banded500k in float32 and float64, and the solvers on a 500,000-row
+    SPD matrix (iterative refinement: K1 inner CG, K4 residual; CG on
+    K1). Every kernel count is set to 0 just before and read just after.
+    Returns (CLI results by name, launches, max |K4 - plain|, the df64
+    matrix)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch import SpMVHandle, build_csr5, csr5_spmv, solvers
+    from benchmark_spmv_using_csr5_tpu_torch.bench import cli
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64, csr5_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
+    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+
+    f64 = torch.float64
+    df64 = synth.f64_banded(500_000, 27)
+    band = sp.csr_matrix(synth.banded(500_000, 27))
+    spd = df64 + df64.T
+    spd = (spd * 0.5 + sp.eye(spd.shape[0]) * (abs(df64).sum(axis=1).max() + 1.0)).tocsr()
+    runs = [
+        ("example.mtx", lambda: cli.run([os.path.join(ROOT, "example.mtx"), "--dtype", "float64"])),
+        ("banded500k", lambda: cli.run(["--synthetic", "banded:500000:27", "--dtype", "float64"])),
+        ("df64_banded500k", lambda: cli.run_matrix(
+            cli.parse_args(["--dtype", "float64"]), "df64_banded500k",
+            df64.indptr, df64.indices, df64.data, df64.shape)),
+    ]
+    csr5_kernel.launches = csr5_f64.launches = 0
+    t0 = time.perf_counter()
+    results = {name: go() for name, go in runs}
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+
+    # the handle, float32 (K1) and float64 (K4), against scipy
+    hrng = np.random.default_rng(11)
+    for dt in (np.float32, np.float64):
+        a = band.astype(dt)
+        h = SpMVHandle(*a.shape)
+        h.inputCSR(a.nnz, a.indptr, a.indices, a.data).asCSR5()
+        x = hrng.integers(1, 10, a.shape[1]).astype(dt)
+        y = h.setX(x).spmv(-1.75)
+        ok = torch.equal(y.cpu(), torch.from_numpy(-1.75 * (a @ x)))
+        sigma0, plane = h.csr5.sigma, str(h.csr5.val_tiles.dtype).removeprefix("torch.")
+        h.asCSR()
+        c = h.csr
+        ok = ok and np.array_equal(c.row_ptr.cpu().numpy(), a.indptr) and np.array_equal(
+            c.col_idx.cpu().numpy(), a.indices) and np.array_equal(c.values.cpu().numpy(), a.data)
+        h.asCSR5().setSigma(16)
+        ok = ok and h.csr5.sigma == 16 and torch.equal(h.spmv(1.0).cpu(), torch.from_numpy(a @ x))
+        rc = h.destroy()
+        ok = ok and rc == 0
+        failed += [] if ok else [f"handle {np.dtype(dt).name}"]
+        say(f"[SpMVHandle banded500k {np.dtype(dt).name}] {'PASS' if ok else 'FAIL'}: inputCSR -> "
+            f"asCSR5 (sigma {sigma0}, {plane} plane) -> setX -> spmv(-1.75) == scipy, asCSR round "
+            f"trip, setSigma(16) reconverts, destroy() = {rc}")
+
+    # the solvers at full width: IR (K1 inner, K4 residual) and CG on K1
+    a64 = build_csr5(spd, value_dtype=f64, device=dev)
+    a32 = build_csr5(spd.astype(np.float32), value_dtype="auto", device=dev)
+    lo = lambda v: csr5_spmv(a32, v)  # noqa: E731
+    hi = lambda v: csr5_spmv(a64, v)  # noqa: E731
+    b = torch.ones(spd.shape[0], dtype=f64, device=dev)
+    bn = float(torch.linalg.vector_norm(b))
+    k1_0, k4_0 = csr5_kernel.launches, csr5_f64.launches
+    t0 = time.perf_counter()
+    x32, _ = solvers.conjugate_gradient(lo, b.float(), iters=300)
+    res32 = float(torch.linalg.vector_norm(b - hi(x32.double()))) / bn
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    k1_cg = csr5_kernel.launches - k1_0
+    k1_0, k4_0 = csr5_kernel.launches, csr5_f64.launches
+    t0 = time.perf_counter()
+    x_ir, res_ir = solvers.iterative_refinement(lo, hi, b, outer_iters=5, inner_iters=50)
+    res_ir = float(res_ir) / bn
+    torch.cuda.synchronize()
+    ir_s = time.perf_counter() - t0
+    k1_ir, k4_ir = csr5_kernel.launches - k1_0, csr5_f64.launches - k4_0
+    res_ir_scipy = float(np.linalg.norm(1.0 - spd @ x_ir.cpu().numpy())) / bn
+    ok = res_ir <= 1e-10 and res_ir * 10 <= res32 and res_ir_scipy <= 1e-10 and x_ir.dtype == f64
+    failed += [] if ok else ["iterative refinement"]
+    say(f"[solvers, SPD {spd.shape[0]} rows, {spd.nnz} nnz] {'PASS' if ok else 'FAIL'}: float32-only "
+        f"CG (K1, 300 iterations, {k1_cg} K1 launches) relative residual {res32:.3e} in {cg_s:.3f} s; "
+        f"iterative refinement (5 x 50, K1 inner, K4 residual: {k1_ir} K1 and {k4_ir} K4 launches) "
+        f"{res_ir:.3e} (scipy: {res_ir_scipy:.3e}) in {ir_s:.3f} s; limit 1e-10 and 10x below CG")
+    torch.cuda.synchronize()
+    launches = {"csr5_spmv": csr5_kernel.launches, "csr5_spmv_f64": csr5_f64.launches}
+
+    # the CLI runs: checks, K4 against its plain version on the same x
+    err = 0.0
+    for name, _ in runs:
+        r = results[name]
+        say(r.report())
+        good = (
+            r.check_ok and r.backend == "cuda" and r.storage == "float64" and r.y.dtype == f64
+            and tuple(r.y.shape) == (r.m,) and bool(torch.isfinite(r.y).all())
+            and (r.max_rel_err == 0.0 or name == "df64_banded500k")
+        )
+        x = np.random.default_rng(0).integers(1, 10, r.n).astype(np.float64)
+        xd = torch.from_numpy(x).to(dev)
+        y_p = csr5_spmv_torch(r.matrix, xd)
+        e = float((r.y - y_p).abs().max())
+        err = max(err, e)
+        a = df64 if name == "df64_banded500k" else None
+        if a is not None:
+            y_ref = a @ x
+            raw = float((np.abs(r.y.cpu().numpy() - y_ref) / np.abs(y_ref)).max())
+            lim = r.matrix.sigma * 128 * K4_ULP * tile_scale(np, a, x, r.matrix.sigma)
+            inside = bool((np.abs(r.y.cpu().numpy() - y_p.cpu().numpy()) <= lim).all())
+            good = good and raw <= 1e-12 and inside
+            say(f"[{name}] K4 vs scipy float64: max rel err {raw:.3e} per row (no floor; "
+                f"limit 1e-12); vs plain: max abs err {e:.3e}, within T * 2^-53 of the tile mass: "
+                f"{inside}")
+        else:
+            good = good and torch.equal(r.y, y_p)
+            say(f"[{name}] K4 vs plain on the card: max abs err {e} {'PASS' if e == 0 else 'FAIL'}")
+        if not good:
+            failed.append(f"f64 {name}")
+    say(f"float64 path launches: K4 {launches['csr5_spmv_f64']}, K1 {launches['csr5_spmv']} "
+        f"(CLI runs {cli_s:.1f} s)")
+    for k, v in launches.items():
+        if v == 0:
+            failed.append(f"no {k} launch on the float64 path")
+    return results, launches, err, df64
+
+
+def library_csr(a, dtype, dev):
+    """The matrix as a ``torch.sparse_csr_tensor`` on ``dev``: the
+    library yardstick's operand (cuSPARSE through PyTorch), used nowhere
+    in the port."""
+    import numpy as np
+    import torch
+
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int32)), torch.from_numpy(a.indices.astype(np.int32)),
+        torch.from_numpy(a.data.astype(dtype)), size=a.shape, device=dev)
+
+
+def device_us_per_call(fn, *args, n: int = 50):
+    """Device time (us) of everything one call of ``fn`` launches, by
+    torch.profiler over ``n`` calls; None when it shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(*args)
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.key_averages())
+    return total / n if total else None
+
+
+def yardstick(dev, card, kind, df64, a64, mats):
+    """K4 and its plain version at df64_banded500k, in turns, with its
+    device time; the library call (``torch.sparse_csr_tensor @ x``) beside
+    K1, K2, K4, K5, K6 and K7 on the same matrices and x; and every
+    kernel's bound from this run's inputs. ``mats`` holds the inputs the
+    earlier phases timed: name -> (matrix, x). Returns name -> (bound ms,
+    bound_by, library ms) and K4's (ms, plain ms)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
+    from benchmark_spmv_using_csr5_tpu_torch.utils import perf, synth
+
+    gbps = perf.device_hbm_gbps(kind)
+    x64 = torch.from_numpy(np.random.default_rng(0).integers(1, 10, a64.n).astype(np.float64)).to(dev)
+    times = {"k4": [], "k4_plain": []}
+    for k in ("k4_plain", "k4", "k4", "k4_plain"):
+        fn = csr5_f64.csr5_spmv_f64_cuda if k == "k4" else csr5_spmv_torch
+        times[k].append(perf.benchmark(fn, a64, x64, device=dev, num_run=100 if k == "k4" else 20))
+    k4_ms, k4_plain_ms = (sum(times[k]) / 2 for k in ("k4", "k4_plain"))
+
+    band = sp.csr_matrix(synth.banded(500_000, 27)).astype(np.float32)
+    A32, A64 = library_csr(band, np.float32, dev), library_csr(df64, np.float64, dev)
+    x = mats["csr5_spmv"][1]
+    X8 = mats["csr5_spmm"][1]
+    mm = lambda A, v: A @ v  # noqa: E731
+    lib = {
+        "spmv_f32": perf.benchmark(mm, A32, x, device=dev, num_run=100),
+        "spmv_f64": perf.benchmark(mm, A64, x64, device=dev, num_run=100),
+        "spmm8_f32": perf.benchmark(mm, A32, X8, device=dev, num_run=100),
+    }
+    dev_us = {
+        "k4": device_us(csr5_f64.csr5_spmv_f64_cuda, a64, x64, match="csr5_spmv_f64_tile_kernel"),
+        "lib_spmv_f32": device_us_per_call(mm, A32, x),
+        "lib_spmv_f64": device_us_per_call(mm, A64, x64),
+        "lib_spmm8_f32": device_us_per_call(mm, A32, X8),
+    }
+    # bounds: each input read once, each output written once
+    f32, f64p = PEAK_FLOPS["float32"], PEAK_FLOPS["float64"]
+    out = {}
+    a5, xk1 = mats["csr5_spmv"]
+    out["csr5_spmv"] = bound_ms(
+        nbytes(a5.col_idx_tiles, a5.val_tiles, a5.win_map, a5.tile_ptr, xk1) + a5.m * 4,
+        2 * a5.nnz, gbps, f32) + (lib["spmv_f32"],)
+    out["csr5_spmv_f64"] = bound_ms(
+        nbytes(a64.col_idx_tiles, a64.val_tiles, a64.win_map, a64.tile_ptr, x64) + a64.m * 8,
+        2 * a64.nnz, gbps, f64p) + (lib["spmv_f64"],)
+    d, xd = mats["dia_spmv"]
+    # the DIA kernels multiply every element of the plane, zeros included
+    out["dia_spmv"] = bound_ms(nbytes(d.data, d.offsets_t, xd) + d.m * 4, 2 * d.data.numel(),
+                               gbps, f32) + (lib["spmv_f32"],)
+    d, X = mats["dia_spmm"]
+    R = X.shape[1]
+    out["dia_spmm"] = bound_ms(nbytes(d.data, d.offsets_t, X) + d.m * R * 4,
+                               2 * d.data.numel() * R, gbps, f32) + (lib["spmm8_f32"],)
+    a5, X = mats["csr5_spmm"]
+    out["csr5_spmm"] = bound_ms(
+        nbytes(a5.col_idx_tiles, a5.val_tiles, a5.win_map, a5.tile_ptr, X) + a5.m * R * 4,
+        2 * a5.nnz * R, gbps, f32) + (lib["spmm8_f32"],)
+    bb, X = mats["bandmm_spmm"]
+    out["bandmm_spmm"] = bound_ms(nbytes(bb.dense, bb.c0, X) + bb.m * R * 4,
+                                  2 * bb.dense.numel() * R, gbps, f32) + (lib["spmm8_f32"],)
+    say(f"[df64_banded500k K4, {card}] turns (ms per call, event loop): "
+        + ", ".join(f"{k} {v}" for k, v in times.items())
+        + f"; K4 {k4_ms:.5f} ms, device {dev_us['k4']} us, bound {out['csr5_spmv_f64'][0] * 1e3:.2f} us "
+        f"({nbytes(a64.col_idx_tiles, a64.val_tiles, a64.win_map, a64.tile_ptr) / 1e6:.1f} MB planes "
+        f"+ x, y); plain {k4_plain_ms:.4f} ms")
+    say(f"[library yardstick, torch.sparse_csr_tensor @ dense, {card}] ms per call (event loop): "
+        + ", ".join(f"{k} {v:.5f}" for k, v in lib.items())
+        + "; device us per call: " + ", ".join(
+            f"{k} {'not measured' if v is None else f'{v:.2f}'}" for k, v in dev_us.items()))
+    say("[bounds, us] " + ", ".join(f"{k} {v[0] * 1e3:.2f} ({v[1]})" for k, v in out.items()))
+    return out, (k4_ms, k4_plain_ms)
 
 
 def main() -> int:
@@ -701,7 +1051,7 @@ def main() -> int:
 
     from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5
     from benchmark_spmv_using_csr5_tpu_torch.bench import cli
-    from benchmark_spmv_using_csr5_tpu_torch.ops import bandmm_kernel, csr5_kernel, dia_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops import bandmm_kernel, csr5_f64, csr5_kernel, dia_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
     from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, perf, synth
 
@@ -720,6 +1070,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build(SOURCES)
     csr5_kernel._lib()
+    csr5_f64._lib()
     csr5_kernel._lib_spmm()
     dia_kernel._lib()
     bandmm_kernel._lib()
@@ -858,8 +1209,8 @@ def main() -> int:
         return 1
 
     # --- 6. K5 vs K1 at banded500k, K6 at R = 8, device times ------------------
-    t = crossover(dev, card, kind, big.matrix, fmt["auto_banded500k"], fmt["dia_spmm8"],
-                  xs[big.name])
+    t, xm6 = crossover(dev, card, kind, big.matrix, fmt["auto_banded500k"], fmt["dia_spmm8"],
+                       xs[big.name])
 
     # --- 7. K2 and K7 vs plain vs scipy on the odd shapes ----------------------
     failed += spmm_sweep(dev, rng)
@@ -875,60 +1226,53 @@ def main() -> int:
         return 1
 
     # --- 9. K2 vs K6 vs K7 at banded500k, device times -------------------------
-    t2 = spmm_crossover(dev, card, spmm["spmm8_banded500k"].matrix, fmt["dia_spmm8"].matrix,
-                        spmm["bandblock_spmm8"].matrix)
+    t2, x8 = spmm_crossover(dev, card, spmm["spmm8_banded500k"].matrix, fmt["dia_spmm8"].matrix,
+                            spmm["bandblock_spmm8"].matrix)
+
+    # --- 10. K4 vs plain vs scipy float64 on the odd shapes --------------------
+    failed += f64_sweep(dev, rng)
+    if failed:
+        print(f"chip_smoke: K4 sweep failed: {failed}", file=sys.stderr)
+        return 1
+
+    # --- 11. the float64 path at full width: CLI, handle, solvers ---------------
+    f64res, f64_launches, f64_err, df64 = f64_path(dev, failed)
+    if failed:
+        print(f"chip_smoke: float64 path failed: {failed}", file=sys.stderr)
+        return 1
+
+    # --- 12. K4's time, the library yardstick and every kernel's bound ---------
+    mats = {
+        "csr5_spmv": (big.matrix, xs[big.name]),
+        "dia_spmv": (fmt["auto_banded500k"].matrix, xs[big.name]),
+        "dia_spmm": (fmt["dia_spmm8"].matrix, xm6),
+        "csr5_spmm": (spmm["spmm8_banded500k"].matrix, x8),
+        "bandmm_spmm": (spmm["bandblock_spmm8"].matrix, x8),
+    }
+    bounds, (k4_ms, k4_plain_ms) = yardstick(dev, card, kind, df64, f64res["df64_banded500k"].matrix,
+                                             mats)
+
+    def entry(name, source, replaces, launches_, err, ms, plain):
+        b_ms, b_by, lib_ms = bounds[name]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
     say(json.dumps({"kernels": [
-        {
-            "name": "csr5_spmv",
-            "route": "cuda",
-            "source": K1_SOURCE,
-            "replaces": K1_REPLACES,
-            "launches": launches + fmt_launches["csr5_spmv"],
-            "max_abs_err": max(max_abs, fmt_err["csr5_spmv"]),
-            "ms": k_ms,
-            "plain_ms": p_ms,
-        },
-        {
-            "name": "dia_spmv",
-            "route": "cuda",
-            "source": DIA_SOURCE,
-            "replaces": K5_REPLACES,
-            "launches": fmt_launches["dia_spmv"],
-            "max_abs_err": fmt_err["dia_spmv"],
-            "ms": t["k5"],
-            "plain_ms": t["k5_plain"],
-        },
-        {
-            "name": "dia_spmm",
-            "route": "cuda",
-            "source": DIA_SOURCE,
-            "replaces": K6_REPLACES,
-            "launches": fmt_launches["dia_spmm"] + spmm_launches["dia_spmm"],
-            "max_abs_err": max(fmt_err["dia_spmm"], spmm_err["dia_spmm"]),
-            "ms": t["k6"],
-            "plain_ms": t["k6_plain"],
-        },
-        {
-            "name": "csr5_spmm",
-            "route": "cuda",
-            "source": K2_SOURCE,
-            "replaces": K2_REPLACES,
-            "launches": spmm_launches["csr5_spmm"],
-            "max_abs_err": spmm_err["csr5_spmm"],
-            "ms": t2["k2"],
-            "plain_ms": t2["k2_plain"],
-        },
-        {
-            "name": "bandmm_spmm",
-            "route": "cuda",
-            "source": K7_SOURCE,
-            "replaces": K7_REPLACES,
-            "launches": spmm_launches["bandmm_spmm"],
-            "max_abs_err": spmm_err["bandmm_spmm"],
-            "ms": t2["k7"],
-            "plain_ms": t2["k7_plain"],
-        },
+        entry("csr5_spmv", K1_SOURCE, K1_REPLACES,
+              launches + fmt_launches["csr5_spmv"] + f64_launches["csr5_spmv"],
+              max(max_abs, fmt_err["csr5_spmv"]), k_ms, p_ms),
+        entry("dia_spmv", DIA_SOURCE, K5_REPLACES, fmt_launches["dia_spmv"], fmt_err["dia_spmv"],
+              t["k5"], t["k5_plain"]),
+        entry("dia_spmm", DIA_SOURCE, K6_REPLACES,
+              fmt_launches["dia_spmm"] + spmm_launches["dia_spmm"],
+              max(fmt_err["dia_spmm"], spmm_err["dia_spmm"]), t["k6"], t["k6_plain"]),
+        entry("csr5_spmm", K2_SOURCE, K2_REPLACES, spmm_launches["csr5_spmm"],
+              spmm_err["csr5_spmm"], t2["k2"], t2["k2_plain"]),
+        entry("bandmm_spmm", K7_SOURCE, K7_REPLACES, spmm_launches["bandmm_spmm"],
+              spmm_err["bandmm_spmm"], t2["k7"], t2["k7_plain"]),
+        entry("csr5_spmv_f64", K4_SOURCE, K4_REPLACES, f64_launches["csr5_spmv_f64"], f64_err,
+              k4_ms, k4_plain_ms),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -73,7 +73,7 @@ def _both(name, value_dtype=None):
     a, host = _host(make())
     jdt = {None: None, torch.float32: np.float32, torch.bfloat16: ml_dtypes.bfloat16}[value_dtype]
     bj = jbb.build_bandblock(host, max_bytes_ratio=ratio, value_dtype=jdt)
-    bp = pbb.build_bandblock(host, max_bytes_ratio=ratio, value_dtype=value_dtype)
+    bp = pbb.build_bandblock(host, max_bytes_ratio=ratio, value_dtype=value_dtype, device="cpu")
     return a, bj, bp
 
 
@@ -102,7 +102,7 @@ def test_confined_columns_window_below_n():
 def test_scattered_rejects_like_jax():
     a, host = _host(synth.power_law(20_000, 20_000, 8.0))
     assert jbb.build_bandblock(host) is None
-    assert pbb.build_bandblock(host) is None
+    assert pbb.build_bandblock(host, device="cpu") is None
     assert not pbb.bandblock_accepts(host)
 
 
@@ -112,13 +112,13 @@ def test_waste_gate_rejects_like_jax():
     cols = np.minimum((rows * 977) % 3000 + (rows // 128) * 128, m - 1)
     a, host = _host(sp.csr_matrix((np.ones(m, np.float32), (rows, cols)), shape=(m, m)))
     assert jbb.build_bandblock(host) is None
-    assert pbb.build_bandblock(host) is None
+    assert pbb.build_bandblock(host, device="cpu") is None
     assert not pbb.bandblock_accepts(host)
 
 
 def test_empty_matrix_rejects():
     a, host = _host(sp.csr_matrix((16, 16), dtype=np.float32))
-    assert jbb.build_bandblock(host) is None and pbb.build_bandblock(host) is None
+    assert jbb.build_bandblock(host) is None and pbb.build_bandblock(host, device="cpu") is None
 
 
 @pytest.mark.parametrize("values", ["integer", "decade_spread"])
@@ -129,7 +129,7 @@ def test_auto_dtype_gate_matches_jax(values):
     if values == "decade_spread":
         a, host = _host(_decade_spread(a, np.random.default_rng(7)))
     bj = jbb.build_bandblock(host, max_bytes_ratio=100.0)
-    bp = pbb.build_bandblock(host, max_bytes_ratio=100.0)
+    bp = pbb.build_bandblock(host, max_bytes_ratio=100.0, device="cpu")
     _assert_same_planes(bj, bp)
     assert bp.dtype == (torch.bfloat16 if values == "integer" else torch.float32)
     assert pbb.bandblock_accepts(host, max_bytes_ratio=100.0)
@@ -175,7 +175,7 @@ def test_float_highest_matches_jax_within_rtol():
     rng = np.random.default_rng(5)
     a, host = _host(_decade_spread(sp.csr_matrix(synth.banded(3000, 27)), rng))
     bj = jbb.build_bandblock(host, max_bytes_ratio=100.0)
-    bp = pbb.build_bandblock(host, max_bytes_ratio=100.0)
+    bp = pbb.build_bandblock(host, max_bytes_ratio=100.0, device="cpu")
     assert bp.dtype == torch.float32  # the auto gate: "auto" runs "highest"
     X = rng.uniform(0.5, 1.5, (a.shape[1], 8)).astype(np.float32)
     y = P.bandmm_spmm_torch(bp, torch.from_numpy(X)).numpy()
@@ -192,7 +192,7 @@ def test_float_default_on_f32_plane_rounds_both_operands_to_bf16():
     sums. XLA on the CPU does not round, so the reference is numpy."""
     rng = np.random.default_rng(6)
     a, host = _host(_decade_spread(sp.csr_matrix(synth.banded(3000, 27)), rng))
-    bp = pbb.build_bandblock(host, max_bytes_ratio=100.0, value_dtype=torch.float32)
+    bp = pbb.build_bandblock(host, max_bytes_ratio=100.0, value_dtype=torch.float32, device="cpu")
     X = rng.uniform(0.5, 1.5, (a.shape[1], 5)).astype(np.float32)
     y = P.bandmm_spmm_torch(bp, torch.from_numpy(X), ALPHA, precision="default").numpy()
     a16 = a.copy()
@@ -213,7 +213,7 @@ def test_forced_bf16_plane_within_one_percent():
     not exact."""
     rng = np.random.default_rng(7)
     a, host = _host(_decade_spread(sp.csr_matrix(synth.banded(2000, 9)), rng))
-    bp = pbb.build_bandblock(host, max_bytes_ratio=100.0, value_dtype=torch.bfloat16)
+    bp = pbb.build_bandblock(host, max_bytes_ratio=100.0, value_dtype=torch.bfloat16, device="cpu")
     bj = jbb.build_bandblock(host, max_bytes_ratio=100.0, value_dtype=ml_dtypes.bfloat16)
     X = rng.uniform(0.5, 1.5, (a.shape[1], 3)).astype(np.float32)
     y = P.bandmm_spmm_torch(bp, torch.from_numpy(X), precision="default").numpy()

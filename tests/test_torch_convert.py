@@ -71,7 +71,7 @@ def test_convert_planes_match_jax(edge_matrix, sigma, win_mode, value_dtype):
         win_mode=win_mode, keep_raw_cols=True,
     )
     a5p = P.build_csr5(
-        host, P.CSR5Config(sigma=sigma), value_dtype=value_dtype, win_mode=win_mode
+        host, P.CSR5Config(sigma=sigma), value_dtype=value_dtype, win_mode=win_mode, device="cpu"
     )
     assert_same_matrix(a5p, a5j)
     # integer values 1-9: the lossless gate stores bfloat16
@@ -83,7 +83,7 @@ def test_convert_planes_match_jax(edge_matrix, sigma, win_mode, value_dtype):
 def test_csr5_to_csr_roundtrip_exact(edge_matrix, value_dtype):
     name, a_sp = edge_matrix
     a, host = _host(a_sp)
-    back = P.csr5_to_csr(P.build_csr5(host, value_dtype=value_dtype))
+    back = P.csr5_to_csr(P.build_csr5(host, value_dtype=value_dtype, device="cpu"))
     np.testing.assert_array_equal(back.row_ptr.numpy(), a.indptr, err_msg=name)
     np.testing.assert_array_equal(back.col_idx.numpy(), a.indices, err_msg=name)
     np.testing.assert_array_equal(back.values.float().numpy(), a.data, err_msg=name)
@@ -97,7 +97,7 @@ def test_carry_across_roundtrip():
     assert a5j.col_idx_tiles is None and a5j.col_packed is not None
     static = {f: getattr(a5j, f) for f in STATIC_FIELDS}
     static["value_dtype"] = "bfloat16"
-    a5p = P.csr5_from_numpy(_jax_planes(a5j), static)
+    a5p = P.csr5_from_numpy(_jax_planes(a5j), static, device="cpu")
     ref = _jax_planes(J.build_csr5(host, J.CSR5Config(sigma=16), keep_raw_cols=True))
     np.testing.assert_array_equal(a5p.col_idx_tiles.numpy(), ref["col_idx_tiles"])
     assert a5p.val_tiles.dtype == torch.bfloat16
@@ -111,16 +111,16 @@ def test_host_arena_does_not_alias_planes():
     leave the first matrix's tensors untouched."""
     _, h1 = _host(synth.banded(2000, 9, dtype=np.float32))
     _, h2 = _host(synth.power_law(2000, 2000, 12.0, dtype=np.float32, seed=3))
-    a = P.build_csr5(h1, P.CSR5Config(sigma=16))
+    a = P.build_csr5(h1, P.CSR5Config(sigma=16), device="cpu")
     before = {f: getattr(a, f).clone() for f in ("col_idx_tiles", "val_tiles", "win_map")}
-    P.build_csr5(h2, P.CSR5Config(sigma=16))
+    P.build_csr5(h2, P.CSR5Config(sigma=16), device="cpu")
     for f, t in before.items():
         assert torch.equal(getattr(a, f), t), f
 
 
 def test_float64_values_narrow_to_float32():
     _, host = _host(synth.banded(500, 9))
-    a5 = P.build_csr5((host[0], host[1], host[2].astype(np.float64), host[3]))
+    a5 = P.build_csr5((host[0], host[1], host[2].astype(np.float64), host[3]), device="cpu")
     assert a5.val_tiles.dtype == torch.float32
 
 

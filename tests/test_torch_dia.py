@@ -104,7 +104,7 @@ def test_build_dia_planes_match_jax(name, layout, route, request):
         request.getfixturevalue("numpy_route")
     host = _host(MATRICES[name]())
     dj = jdia.build_dia(host, layout=layout)
-    dp = P.build_dia(host, layout=layout)
+    dp = P.build_dia(host, layout=layout, device="cpu")
     assert dj is not None and dp is not None
     assert_same_dia(dp, dj)
 
@@ -121,12 +121,12 @@ def test_build_dia_planes_match_jax(name, layout, route, request):
 def test_build_dia_gates_unstructured_like_jax(make):
     host = _host(make())
     assert jdia.build_dia(host) is None
-    assert P.build_dia(host) is None
+    assert P.build_dia(host, device="cpu") is None
 
 
 def test_float64_values_narrow_to_float32(numpy_route):
     a = sp.csr_matrix(synth.banded(700, 9, dtype=np.float64))
-    dp = P.build_dia(_host(a))
+    dp = P.build_dia(_host(a), device="cpu")
     dj = jdia.build_dia(_host(a))
     assert dp.data.dtype == torch.float32
     np.testing.assert_array_equal(dp.data.numpy(), np.asarray(dj.data).astype(np.float32))
@@ -147,7 +147,7 @@ def test_dia_spmv_plain_matches_jax_exactly(name, layout, vdt, alpha):
     host = _host(MATRICES[name]())
     jvdt = ml_dtypes.bfloat16 if vdt == "bfloat16" else None
     dj = jdia.build_dia(host, layout=layout, value_dtype=jvdt)
-    dp = P.build_dia(host, layout=layout, value_dtype=getattr(torch, vdt))
+    dp = P.build_dia(host, layout=layout, value_dtype=getattr(torch, vdt), device="cpu")
     x = _x(host[3][1])
     y = pdia.dia_spmv_torch(dp, torch.from_numpy(x), alpha).numpy()
     np.testing.assert_array_equal(y, np.asarray(jdia.dia_spmv(dj, x, alpha, interpret=True)))
@@ -160,7 +160,7 @@ def test_dia_spmv_plain_matches_jax_exactly(name, layout, vdt, alpha):
 def test_dia_spmm_plain_matches_jax_exactly(name, layout, R):
     host = _host(MATRICES[name]())
     dj = jdia.build_dia(host, layout=layout)
-    dp = P.build_dia(host, layout=layout)
+    dp = P.build_dia(host, layout=layout, device="cpu")
     xm = _x(host[3][1], R)
     ym = pdia.dia_spmm_torch(dp, torch.from_numpy(xm), 0.5).numpy()
     assert ym.shape == (host[3][0], R)
@@ -175,7 +175,7 @@ def test_dia_spmv_random_floats_within_rtol(layout):
     a = sp.csr_matrix(synth.banded(2000, 27)).astype(np.float32)
     a.data = rng.uniform(-1, 1, a.nnz).astype(np.float32)
     x = rng.uniform(-1, 1, a.shape[1]).astype(np.float32)
-    dp = P.build_dia(_host(a), layout=layout)
+    dp = P.build_dia(_host(a), layout=layout, device="cpu")
     dj = jdia.build_dia(_host(a), layout=layout)
     y = pdia.dia_spmv_torch(dp, torch.from_numpy(x), -1.75).numpy().astype(np.float64)
     y64 = -1.75 * (a.astype(np.float64) @ x.astype(np.float64))
@@ -192,7 +192,7 @@ def test_dia_carried_across_gives_same_y(layout, vdt):
     host = _host(MATRICES["m1500"]())
     jvdt = ml_dtypes.bfloat16 if vdt == "bfloat16" else None
     dj = jdia.build_dia(host, layout=layout, value_dtype=jvdt)
-    dp = P.dia_from_numpy(np.asarray(dj.data), {f: getattr(dj, f) for f in DIA_STATIC_FIELDS})
+    dp = P.dia_from_numpy(np.asarray(dj.data), {f: getattr(dj, f) for f in DIA_STATIC_FIELDS}, device="cpu")
     assert dp.data.dtype == getattr(torch, vdt)
     assert_same_dia(dp, dj)
     x = _x(host[3][1])
@@ -224,9 +224,9 @@ def test_bf16_auto_gate_tests_the_summed_plane():
         if route == "numpy":
             with pytest.MonkeyPatch.context() as mp:
                 mp.setattr(pnative, "dia_plan", lambda *a, **k: None)
-                dp = P.build_dia(host, value_dtype="auto")
+                dp = P.build_dia(host, value_dtype="auto", device="cpu")
         else:
-            dp = P.build_dia(host, value_dtype="auto")
+            dp = P.build_dia(host, value_dtype="auto", device="cpu")
         assert dp.data.dtype == torch.float32, route
         np.testing.assert_array_equal(pdia.dia_spmv_torch(dp, torch.from_numpy(x)).numpy(), y_ref)
     dj = jdia.build_dia(host, value_dtype="auto")
@@ -240,12 +240,12 @@ def test_bf16_auto_gate_tests_the_summed_plane():
 )
 def test_bf16_auto_gate_stores_bf16_only_when_lossless(vals, want):
     host = (np.array([0, 2, 3, 4]), np.array([0, 1, 1, 2]), np.array(vals, np.float32), (3, 3))
-    assert P.build_dia(host, value_dtype="auto").data.dtype == want
+    assert P.build_dia(host, value_dtype="auto", device="cpu").data.dtype == want
 
 
 def test_dispatchers_run_plain_versions_on_cpu():
     host = _host(MATRICES["m700"]())
-    dp = P.build_dia(host)
+    dp = P.build_dia(host, device="cpu")
     x = torch.from_numpy(_x(700))
     xm = torch.from_numpy(_x(700, 3))
     before = (dia_kernel.spmv_launches, dia_kernel.spmm_launches)
@@ -268,14 +268,14 @@ def test_dispatchers_run_plain_versions_on_cpu():
 def test_cuda_path_on_cpu_tensors_raises(call):
     """Asking for K5/K6 with CPU tensors raises before any build: nothing
     falls back to the plain versions."""
-    dp = P.build_dia(_host(MATRICES["m700"]()))
+    dp = P.build_dia(_host(MATRICES["m700"]()), device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         call(dp, torch.ones(700))
     assert "dia_spmv" not in cuda_build.loaded()
 
 
 def test_dispatcher_rejects_unknown_backend():
-    dp = P.build_dia(_host(MATRICES["m700"]()))
+    dp = P.build_dia(_host(MATRICES["m700"]()), device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         P.dia_spmv(dp, torch.ones(700), backend="pallas")
 
@@ -307,8 +307,8 @@ def test_supported_gates():
 
 
 def test_dia_to_numpy_roundtrip():
-    dp = P.build_dia(_host(MATRICES["rect_tall_neg"]()), value_dtype=torch.bfloat16)
+    dp = P.build_dia(_host(MATRICES["rect_tall_neg"]()), value_dtype=torch.bfloat16, device="cpu")
     data, static = P.dia_to_numpy(dp)
-    back = P.dia_from_numpy(data.astype(np.float32), static)
+    back = P.dia_from_numpy(data.astype(np.float32), static, device="cpu")
     assert back.offsets == dp.offsets and back.shape == dp.shape
     assert torch.equal(back.data, dp.data.float())

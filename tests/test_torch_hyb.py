@@ -63,7 +63,7 @@ def _host(a):
 
 def _both(name):
     host = _host(MATRICES[name]())
-    return host, jhyb.build_hyb(host), phyb.build_hyb(host)
+    return host, jhyb.build_hyb(host), phyb.build_hyb(host, device="cpu")
 
 
 @pytest.mark.parametrize("name", list(MATRICES))
@@ -96,7 +96,7 @@ def test_build_hyb_splits_like_jax(name):
 
 def _carry_csr5(a5j):
     planes = {f: None if getattr(a5j, f) is None else np.asarray(getattr(a5j, f)) for f in PLANE_FIELDS}
-    return P.csr5_from_numpy(planes, {f: getattr(a5j, f) for f in STATIC_FIELDS})
+    return P.csr5_from_numpy(planes, {f: getattr(a5j, f) for f in STATIC_FIELDS}, device="cpu")
 
 
 @pytest.mark.parametrize("alpha", [1.0, 1.25])
@@ -114,7 +114,7 @@ def test_hyb_spmv_plain_matches_jax_exactly(name, alpha):
 def test_hyb_carried_across_gives_same_y():
     """A JAX HYBMatrix crosses as its two parts."""
     host, hj, hp = _both("hybmix4k")
-    dia = P.dia_from_numpy(np.asarray(hj.dia.data), {f: getattr(hj.dia, f) for f in DIA_STATIC_FIELDS})
+    dia = P.dia_from_numpy(np.asarray(hj.dia.data), {f: getattr(hj.dia, f) for f in DIA_STATIC_FIELDS}, device="cpu")
     h = phyb.HYBMatrix(shape=hj.shape, nnz_stored=hj.nnz_stored, dia=dia, csr5=_carry_csr5(hj.csr5))
     x = torch.from_numpy(np.random.default_rng(2).integers(1, 10, 4000).astype(np.float32))
     assert torch.equal(P.hyb_spmv(h, x), P.hyb_spmv(hp, x))
@@ -122,7 +122,7 @@ def test_hyb_carried_across_gives_same_y():
 
 def test_hyb_empty_gives_zeros():
     e = sp.csr_matrix((16, 16), dtype=np.float32)
-    hp = phyb.build_hyb(_host(e))
+    hp = phyb.build_hyb(_host(e), device="cpu")
     assert hp.dia is None and hp.csr5 is None
     y = P.hyb_spmv(hp, torch.ones(16))
     assert y.shape == (16,) and not y.any()
@@ -155,7 +155,7 @@ def test_hyb_spmm_plain_matches_jax_exactly(name, R):
 
 def test_hyb_spmm_empty_gives_zeros():
     e = sp.csr_matrix((16, 16), dtype=np.float32)
-    y = P.hyb_spmm(phyb.build_hyb(_host(e)), torch.ones(16, 3))
+    y = P.hyb_spmm(phyb.build_hyb(_host(e), device="cpu"), torch.ones(16, 3))
     assert y.shape == (16, 3) and not y.any()
 
 

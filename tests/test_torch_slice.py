@@ -3,10 +3,13 @@
 ``cli.run`` loads the matrix, reorders it, picks the format, converts it,
 checks y against scipy at the reference's 1 % gate and times it, as the
 JAX CLI does: CSR5, DIA (SpMV and SpMM), HYB5, ``--format auto`` and
-``--reorder rcm|auto``, and SpMM (``--spmm K``) through csr5, dia,
-bandblock and auto. On these integer-valued inputs the check must give
-max rel err 0.0, and y must equal the JAX pipeline's y on the same seed
-(``default_rng(0)``), exactly.
+``--reorder rcm|auto``, SpMM (``--spmm K``) through csr5, dia, bandblock
+and auto, ``--dtype float64`` (CSR5 SpMV on a float64 plane, K4's plain
+version here) and ``--autotune``. The CLI runs on the card unless given
+``--backend torch``, which every run here passes. On these
+integer-valued inputs the check must give max rel err 0.0, and y must
+equal the JAX pipeline's y on the same seed (``default_rng(0)``; the
+JAX package under x64 for float64), exactly.
 """
 
 import argparse
@@ -34,7 +37,7 @@ EXAMPLE = os.path.join(ROOT, "example.mtx")
 
 @pytest.mark.parametrize("argv", [[EXAMPLE], ["--synthetic", "banded:3000:27"]])
 def test_slice_matches_jax_pipeline(argv):
-    res = cli.run(argv + ["--num-run", "2"])
+    res = cli.run(argv + ["--num-run", "2", "--backend", "torch"])
     assert res.check_ok and res.max_rel_err == 0.0
     assert res.backend == "torch" and res.device == "cpu"
     assert res.pct_of_roofline is None  # a host time has no device roofline
@@ -68,14 +71,20 @@ def test_slice_matches_jax_pipeline(argv):
     ],
 )
 def test_cli_unported_choices_raise(extra, item):
-    """Choices the port does not run yet raise naming their ROADMAP item.
-    The item-8 choices (SpMM) raised here until K2 and K7 were ported;
-    now they do what the JAX CLI does on example.mtx: SpMM in the format
-    it picks, the band-block gate's exit, and HYB5's SpMV-only exit."""
+    """Choices the port did not run yet raised here naming their ROADMAP
+    item. Every one is ported now (item 8, SpMM, first; items 7 and 2,
+    float64 and the autotuned build, after it) and does what the JAX CLI does
+    on example.mtx: SpMM in the format it picks, the band-block gate's
+    exit, HYB5's SpMV-only exit, float64 CSR5 SpMV on a float64 plane and
+    the re-tuned sigma."""
     argv = [EXAMPLE, "--num-run", "1", "--backend", "torch"] + extra
     if item != "item 8":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-            cli.run(argv)
+        res = cli.run(argv)
+        jfmt, _, y_jax = _jax_cli_y([EXAMPLE] + extra)
+        assert res.format == jfmt == "csr5" and res.check_ok and res.max_rel_err == 0.0
+        want = "float64" if item == "item 7" else "bfloat16"
+        assert res.storage == want and res.y.dtype == getattr(torch, res.dtype)
+        np.testing.assert_array_equal(res.y.numpy(), y_jax)
     elif "hyb" in extra:
         with pytest.raises(SystemExit, match="supports SpMV only"):
             cli.run(argv)
@@ -133,9 +142,13 @@ def _jax_cli_y(argv):
     elif fmt == "hyb":
         x = rng.integers(1, 10, shape[1]).astype(np.float32)
         y = jhyb.hyb_spmv(jhyb.build_hyb(host), x, csr5_backend="xla", interpret=True)
-    else:
-        x = rng.integers(1, 10, shape[1]).astype(np.float32)
-        a5 = J.build_csr5(host, J.CSR5Config(sigma=J.compute_sigma(shape[0], len(v))))
+    else:  # run_benchmark: float64 values stay float64 under x64
+        x = rng.integers(1, 10, shape[1]).astype(v.dtype)
+        cfg = J.CSR5Config(sigma=J.compute_sigma(shape[0], len(v), args.sigma))
+        if args.autotune and args.sigma == J.AUTO_TUNED_SIGMA:
+            a5 = J.build_csr5_autotuned(host, cfg)
+        else:
+            a5 = J.build_csr5(host, cfg)
         y = csr5_spmv_xla(a5, x)
     return fmt, name, np.asarray(y)
 
@@ -156,7 +169,7 @@ def _jax_cli_y(argv):
 def test_cli_format_paths_match_jax(argv, fmt):
     """Each format and reorder path of the CLI checks PASS with max rel
     err 0.0 on the CPU and gives the JAX CLI path's y, exactly."""
-    res = cli.run(argv + ["--num-run", "2"])
+    res = cli.run(argv + ["--num-run", "2", "--backend", "torch"])
     assert res.check_ok and res.max_rel_err == 0.0
     assert res.backend == "torch" and res.format == fmt
     jfmt, jname, y_jax = _jax_cli_y(argv)
@@ -219,11 +232,12 @@ def test_cli_hyb_spmm_refused_like_jax(fmt):
 
 def test_cli_dia_rejects_unstructured_matrix():
     with pytest.raises(SystemExit, match="not diagonal-structured"):
-        cli.run(["--synthetic", "powerlaw:2000:8", "--format", "dia", "--num-run", "1"])
+        cli.run(["--synthetic", "powerlaw:2000:8", "--format", "dia", "--num-run", "1",
+                 "--backend", "torch"])
 
 
 def test_cli_reorder_requires_square():
-    args = cli.parse_args(["--reorder", "rcm"])
+    args = cli.parse_args(["--reorder", "rcm", "--backend", "torch"])
     a = sp.csr_matrix(np.ones((2, 3), np.float32))
     with pytest.raises(SystemExit, match="square"):
         cli.run_matrix(args, "rect", a.indptr, a.indices, a.data, a.shape)
@@ -236,12 +250,97 @@ def test_cli_cuda_backend_without_card_raises(monkeypatch):
 
 
 def test_harness_rejects_float64_values():
+    """The harness refused float64 values until K4 was ported. Now CSR5
+    SpMV takes them on a float64 plane; the formats and SpMM with no
+    float64 kernel still refuse them, naming the format, and never narrow
+    to float32."""
     rp, ci = np.array([0, 1]), np.array([0], np.int32)
-    with pytest.raises(NotImplementedError, match="K4"):
-        harness.run_benchmark("f64", rp, ci, np.ones(1), (1, 1), device="cpu")
+    res = harness.run_benchmark("f64", rp, ci, np.ones(1), (1, 1), num_run=1, device="cpu")
+    assert res.check_ok and res.storage == "float64" and res.y.dtype == torch.float64
+    assert "csr5_spmv_f64" in res.launches
+    runs = {
+        "dia": lambda v: harness.run_dia("f64", rp, ci, v, (1, 1), device="cpu"),
+        "hyb": lambda v: harness.run_hyb("f64", rp, ci, v, (1, 1), device="cpu"),
+        "bandblock": lambda v: harness.run_bandblock("f64", rp, ci, v, (1, 1), device="cpu"),
+        "csr5 --spmm 2": lambda v: harness.run_benchmark(
+            "f64", rp, ci, v, (1, 1), num_rhs=2, device="cpu"),
+    }
+    for fmt, go in runs.items():
+        with pytest.raises(SystemExit, match=f"--format {fmt}.* has no float64 kernel"):
+            go(np.ones(1))
 
 
 def test_cli_main_prints_report(capsys):
     assert cli.main([EXAMPLE, "--num-run", "1", "--backend", "torch"]) == 0
     out = capsys.readouterr().out
     assert "Check... PASS!" in out and "[torch, bfloat16, cpu]" in out
+
+
+@pytest.mark.parametrize("argv", [[EXAMPLE], ["--synthetic", "banded:3000:27"]])
+def test_cli_float64_matches_jax_pipeline(argv):
+    """``--dtype float64`` (CSR5 SpMV on a float64 plane, the plain
+    version of K4 on the CPU) checks PASS with max rel err 0.0 and gives
+    the JAX pipeline's float64 y under x64, exactly."""
+    argv = argv + ["--dtype", "float64"]
+    res = cli.run(argv + ["--num-run", "2", "--backend", "torch"])
+    assert res.check_ok and res.max_rel_err == 0.0 and res.format == "csr5"
+    assert res.storage == "float64" and res.dtype == "float64"
+    assert res.y.dtype == torch.float64 and res.matrix.val_tiles.dtype == torch.float64
+    jfmt, jname, y_jax = _jax_cli_y(argv)
+    assert y_jax.dtype == np.float64 and (res.format, res.name) == (jfmt, jname)
+    np.testing.assert_array_equal(res.y.numpy(), y_jax)
+
+
+@pytest.mark.parametrize(
+    "extra,fmt",
+    [
+        (["--format", "dia"], "dia"),
+        (["--format", "hyb"], "hyb"),
+        (["--format", "bandblock"], "bandblock"),
+        (["--format", "auto"], "dia"),
+        (["--spmm", "4"], "csr5"),
+    ],
+    ids=["dia", "hyb", "bandblock", "auto-dia", "spmm4"],
+)
+def test_cli_float64_without_kernel_exits(extra, fmt):
+    """Every float64 combination but CSR5 SpMV exits naming the format
+    that has no float64 kernel, as the JAX DIA path does; nothing is
+    narrowed to float32."""
+    argv = ["--synthetic", "banded:3000:27", "--dtype", "float64", "--backend", "torch"]
+    with pytest.raises(SystemExit, match=f"--format {fmt}.* has no float64 kernel"):
+        cli.run(argv + extra)
+
+
+@pytest.mark.parametrize("synthetic", ["fem:3000", "powerlaw:3000:20", "scatband:3000:12:1800"])
+def test_cli_autotune_picks_jax_sigma(synthetic):
+    """``--autotune`` re-tunes sigma as the JAX CLI does (32 -> 16,
+    16 -> 8, and 8 kept on these scattered matrices), with the same y."""
+    argv = ["--synthetic", synthetic, "--autotune"]
+    res = cli.run(argv + ["--num-run", "1", "--backend", "torch"])
+    args = cli.parse_args(argv)
+    rp, ci, v, shape, _ = jcli.load_matrix(args)
+    cfg = J.CSR5Config(sigma=J.compute_sigma(shape[0], len(v)))
+    a5j = J.build_csr5_autotuned((rp, ci, v, shape), cfg, value_dtype="auto")
+    assert res.sigma == a5j.sigma and res.matrix.sigma == a5j.sigma
+    assert res.check_ok and res.max_rel_err == 0.0
+    np.testing.assert_array_equal(res.y.numpy(), _jax_cli_y(argv)[2])
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no device named, a builder, the harness and the CLI ask for
+    the card; without one they raise, naming the device argument or the
+    backend, and never carry on on the CPU."""
+    import benchmark_spmv_using_csr5_tpu_torch as P
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = sp.csr_matrix(np.eye(4, dtype=np.float32))
+    for build in (P.build_csr5, P.build_dia, P.build_hyb, P.build_bandblock,
+                  P.build_csr5_autotuned):
+        with pytest.raises(RuntimeError, match="device='cuda'.*no CUDA device"):
+            build(a)
+    with pytest.raises(RuntimeError, match="device='cuda'.*no CUDA device"):
+        P.SpMVHandle(4, 4)
+    with pytest.raises(RuntimeError, match="device='cuda'.*no CUDA device"):
+        harness.run_benchmark("eye", a.indptr, a.indices, a.data, a.shape)
+    with pytest.raises(RuntimeError, match="--backend auto: no CUDA device"):
+        cli.run([EXAMPLE])

@@ -48,7 +48,7 @@ def _pair(a_sp, sigma=16, win_mode="auto", value_dtype=None):
     )
     a5p = P.build_csr5(
         host, P.CSR5Config(sigma=sigma, tiles_per_block=8), value_dtype=value_dtype,
-        win_mode=win_mode,
+        win_mode=win_mode, device="cpu",
     )
     return a, a5j, a5p
 
@@ -209,5 +209,5 @@ def test_spmm_chunk_and_gate():
     for R in (1, 8, 16):
         rc = csr5_kernel.spmm_chunk(a5, R)
         assert csr5_kernel.spmm_smem_bytes(a5.sigma, nends, rc) <= csr5_kernel.SPMM_SMEM_BUDGET
-    wide = P.build_csr5(sp.csr_matrix(synth.banded(3000, 27)).astype(np.float32), P.CSR5Config(sigma=512))
+    wide = P.build_csr5(sp.csr_matrix(synth.banded(3000, 27)).astype(np.float32), P.CSR5Config(sigma=512), device="cpu")
     assert not csr5_kernel.spmm_supported(wide, 8)

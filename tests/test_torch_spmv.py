@@ -39,7 +39,7 @@ def _carry(a5j):
         v = getattr(a5j, f)
         planes[f] = None if v is None else np.asarray(v)
     static = {f: getattr(a5j, f) for f in STATIC_FIELDS}
-    return P.csr5_from_numpy(planes, static)
+    return P.csr5_from_numpy(planes, static, device="cpu")
 
 
 def _both(
@@ -59,7 +59,7 @@ def _both(
     )
     a5p = P.build_csr5(
         host, P.CSR5Config(sigma=sig, tiles_per_block=8), value_dtype=value_dtype,
-        win_mode=win_mode,
+        win_mode=win_mode, device="cpu",
     )
     xt = torch.from_numpy(x)
     ys = {
@@ -138,7 +138,7 @@ def test_csr_oracle_matches_scipy(edge_matrix):
 
 def test_dispatcher_runs_plain_version_on_cpu():
     a = sp.csr_matrix(synth.banded(500, 9)).astype(np.float32)
-    a5 = P.build_csr5((a.indptr, a.indices, a.data, a.shape))
+    a5 = P.build_csr5((a.indptr, a.indices, a.data, a.shape), device="cpu")
     x = torch.from_numpy(synth.dense_x(500, dtype=np.float32))
     before = csr5_kernel.launches
     assert torch.equal(P.csr5_spmv(a5, x), P.csr5_spmv_torch(a5, x))
@@ -151,7 +151,7 @@ def test_cuda_path_on_cpu_tensors_raises(call):
     """Asking for the kernel with CPU tensors raises before any build:
     nothing falls back to the plain version."""
     a = sp.csr_matrix(synth.banded(200, 9)).astype(np.float32)
-    a5 = P.build_csr5((a.indptr, a.indices, a.data, a.shape))
+    a5 = P.build_csr5((a.indptr, a.indices, a.data, a.shape), device="cpu")
     x = torch.ones(200)
     with pytest.raises(ValueError, match="CUDA tensors"):
         if call == "dispatch":
@@ -163,7 +163,7 @@ def test_cuda_path_on_cpu_tensors_raises(call):
 
 def test_dispatcher_rejects_unknown_backend():
     a = sp.csr_matrix(synth.banded(200, 9)).astype(np.float32)
-    a5 = P.build_csr5((a.indptr, a.indices, a.data, a.shape))
+    a5 = P.build_csr5((a.indptr, a.indices, a.data, a.shape), device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         P.csr5_spmv(a5, torch.ones(200), backend="pallas")
 
