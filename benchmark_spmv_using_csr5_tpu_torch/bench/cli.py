@@ -12,9 +12,15 @@ It runs on the card (``--backend auto``, the default, or ``cuda``) and
 exits without one; ``--backend torch`` runs the plain versions on the
 CPU. Float32 values run through these kernels:
 
-- SpMV (``--spmm 1``): CSR5 (K1), DIA (K5), HYB5 (K5 + K1);
-- SpMM (``--spmm K``, K > 1): ``--format csr5`` (K2), ``--format dia``
-  (K6), ``--format bandblock`` (K7, also at K = 1).
+- SpMV (``--spmm 1``): CSR5 (K1, or K1p on a matrix with the packed
+  column plane), DIA (K5), HYB5 (K5 + K1);
+- SpMM (``--spmm K``, K > 1): ``--format csr5`` (K2 or K2p), ``--format
+  dia`` (K6), ``--format bandblock`` (K7, also at K = 1).
+
+CSR5 SpMV on a matrix beyond the JAX package's VMEM cap (m + n over
+18,119,393, e.g. ``--synthetic banded:20000000:27``) runs on the row-sliced
+form through K3, by the same rule as the JAX CLI, which has no flag for it
+either.
 
 ``--dtype float64`` runs CSR5 SpMV on a float64 plane (K4); every other
 format, and SpMM, has no float64 kernel and exits naming it.

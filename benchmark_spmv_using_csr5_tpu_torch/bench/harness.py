@@ -15,7 +15,10 @@ in the shape of the reference benchmark driver
 6. report ms / GB/s / GFLOPS (detail/utils.h:10-20) + %-of-HBM-roofline,
    and the launches of each kernel during the run
 
-Every format is reported under the same getB bytes model, as the JAX
+CSR5 SpMV on a matrix beyond the JAX package's VMEM cap (``should_slice``)
+runs on the row-sliced form through K3, as the JAX harness takes its
+``pallas-sliced`` route (``harness.py:215-234``); ``backend`` forces either
+route. Every format is reported under the same getB bytes model, as the JAX
 package reports them. Float64 values run CSR5 SpMV on kernel K4 with a
 float64 plane; every other format, and SpMM, has no float64 kernel and
 exits saying so. Data goes on the card unless the caller passes
@@ -35,7 +38,7 @@ import scipy.sparse as sp
 import torch
 
 from ..config import AUTO_TUNED_SIGMA, DEFAULT_DEVICE, CSR5Config, compute_sigma, resolve_device
-from ..ops import bandmm, bandmm_kernel, convert, csr5_f64, csr5_kernel, dia_kernel
+from ..ops import bandmm, bandmm_kernel, bigslice, bigslice_kernel, convert, csr5_f64, csr5_kernel, dia_kernel
 from ..ops.csr5_spmv import csr5_spmm, csr5_spmv
 from ..ops.dia import build_dia, dia_spmm, dia_spmm_supported, dia_spmv, dia_supported
 from ..ops.hyb import build_hyb, hyb_spmv
@@ -53,7 +56,8 @@ class BenchResult:
     nnz: int
     sigma: int
     dtype: str
-    #: "cuda" (the kernel) or "torch" (the plain version, on the CPU)
+    #: "cuda" (the kernels) or "torch" (the plain versions, on the CPU);
+    #: "cuda-sliced" / "torch-sliced" on the row-sliced form
     backend: str
     #: the device the run used: the card's name, or "cpu"
     device: str
@@ -120,8 +124,11 @@ def kernel_launches() -> dict:
     """The launch counters of the port's kernels, by kernel name."""
     return {
         "csr5_spmv": csr5_kernel.launches,
+        "csr5_spmv_packed": csr5_kernel.packed_launches,
+        "csr5_sliced": bigslice_kernel.launches,
         "csr5_spmv_f64": csr5_f64.launches,
         "csr5_spmm": csr5_kernel.spmm_launches,
+        "csr5_spmm_packed": csr5_kernel.spmm_packed_launches,
         "dia_spmv": dia_kernel.spmv_launches,
         "dia_spmm": dia_kernel.spmm_launches,
         "bandmm_spmm": bandmm_kernel.launches,
@@ -237,19 +244,39 @@ def run_benchmark(
     device=DEFAULT_DEVICE,
     num_rhs: int = 1,
     autotune: bool = False,
+    backend: str = "auto",
 ) -> BenchResult:
-    """Benchmark CSR5 SpMV (K1, or K4 on float64 values) or, with
-    ``num_rhs > 1``, SpMM (K2) on one matrix, on ``device`` (default: the
-    card). x holds integers 1-9 from ``default_rng(0)`` in the values'
-    dtype; X is (n, R) for SpMM (``harness.py:169-172``). float32 values
-    are stored as bfloat16 only when that is lossless
+    """Benchmark CSR5 SpMV (K1 or K1p, or K4 on float64 values) or, with
+    ``num_rhs > 1``, SpMM (K2 or K2p) on one matrix, on ``device``
+    (default: the card). x holds integers 1-9 from ``default_rng(0)`` in
+    the values' dtype; X is (n, R) for SpMM (``harness.py:169-172``).
+    float32 values are stored as bfloat16 only when that is lossless
     (``value_dtype="auto"``); float64 values keep a float64 plane.
     ``autotune`` converts with :func:`..ops.convert.build_csr5_autotuned`
-    unless ``sigma`` is given."""
+    unless ``sigma`` is given.
+
+    ``backend`` picks the route of float32 SpMV, as the JAX harness's
+    ``pallas-sliced`` does: ``"auto"`` builds the row-sliced form directly
+    (never the whole form first) and runs K3 when ``should_slice(m, n)``;
+    ``"cuda"`` runs one whole-matrix K1 pass whatever the size;
+    ``"cuda-sliced"`` slices whatever the size. A matrix that cannot be
+    sliced takes the whole form. On ``device="cpu"`` the same routes run
+    the plain versions. Float64 and SpMM never slice."""
     _check_values(values, "csr5", num_rhs)
+    if backend not in ("auto", "cuda", "cuda-sliced"):
+        raise ValueError(f"unknown backend {backend!r} (auto|cuda|cuda-sliced)")
     m, n = shape
     device = resolve_device(device, "run_benchmark")
     R = num_rhs
+    slice_ok = R == 1 and values.dtype == np.float32
+    if backend == "cuda-sliced" and not slice_ok:
+        raise ValueError(
+            "backend='cuda-sliced': the row-sliced form runs float32 SpMV only "
+            f"(values {values.dtype}, num_rhs {R})"
+        )
+    sliced = slice_ok and (
+        backend == "cuda-sliced" or (backend == "auto" and bigslice.should_slice(m, n))
+    )
     x = np.random.default_rng(0).integers(1, 10, size=(n, R) if R > 1 else n)
     x = x.astype(values.dtype)
     progress.emit("golden")
@@ -260,6 +287,15 @@ def run_benchmark(
     def build():
         cfg = CSR5Config(sigma=compute_sigma(m, int(row_ptr[-1]), sigma))
         host = (row_ptr, col_idx, values, shape)
+        sl = (
+            bigslice.build_csr5_sliced(host, cfg, value_dtype=vdt, device=device)
+            if sliced
+            else None
+        )
+        if sl is not None:
+            phases = dict(convert.last_convert_phases)  # summed over the slices
+            detail = f"sigma = {sl.sigma}, {sl.num_slices} row slices"
+            return sl, sl.sigma, _dtype_name(sl.slices[0].val_tiles), detail, phases
         if autotune and sigma == AUTO_TUNED_SIGMA:
             a5 = convert.build_csr5_autotuned(host, cfg, value_dtype=vdt, device=device)
         else:
@@ -267,8 +303,19 @@ def run_benchmark(
         phases = dict(convert.last_convert_phases)
         return a5, a5.sigma, _dtype_name(a5.val_tiles), "", phases
 
-    fn = csr5_spmm if R > 1 else csr5_spmv
-    return _measure(name, "csr5", shape, values, x, y_ref, build, fn, num_run, device, max(R, 1))
+    fn = csr5_spmm if R > 1 else _csr5_spmv_any
+    res = _measure(name, "csr5", shape, values, x, y_ref, build, fn, num_run, device, max(R, 1))
+    if isinstance(res.matrix, bigslice.SlicedCSR5):
+        res.backend += "-sliced"
+    return res
+
+
+def _csr5_spmv_any(mat, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x on a whole-matrix CSR5 (K1, K1p or K4) or a row-sliced one
+    (K3)."""
+    if isinstance(mat, bigslice.SlicedCSR5):
+        return bigslice.sliced_spmv(mat, x)
+    return csr5_spmv(mat, x)
 
 
 def run_dia(

@@ -45,23 +45,24 @@
 // layout "rn": X^T (R, n), xs_c = 1, xs_r = n), Y[row, r] at
 // row * ys_row + r * ys_r. Rows >= m get nothing (they hold no nonzeros).
 //
-// Deferred: the packed uint16 column stream (col_packed, K1p), staging X
-// rows through shared memory, several tiles per block.
+// K2p (csr5_spmm_packed_kernel) is the same kernel streaming the packed
+// column plane col_packed (p, sigma/2, 128) int32, two uint16 codes
+// `lane | local_page << 7` per word (rows s and s + sigma/2), which
+// _csr5_spmm_pallas_jit streams whenever it exists (csr5_kernel.py:870-874):
+// 2 B/nnz of columns instead of 4. Column = pages[local] * 128 + lane,
+// with the tile's page list (pmax <= 512 int32) read through the read-only
+// cache. The prefix must still run in s order, so while a thread walks
+// rows s < sigma/2 it keeps each word's high code in shared memory
+// (sigma/2 * 128 uint16) and decodes it again at row s + sigma/2: each word
+// is read from HBM once per chunk, and Y is bit-equal to K2's.
+//
+// Deferred: staging X rows through shared memory, several tiles per block.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "csr5_tile.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kWarps = kLanes / 32;
-// bits 0-15 of a win_map word: the sub-row; bits 16-22: the lane
-constexpr int kSubMask = 0xFFFF;
-constexpr int kLaneMask = kLanes - 1;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+using namespace csr5;
 
 // in-tile position sub * 128 + lane of a win_map word (flag bits 23/24 off)
 __device__ __forceinline__ int pos_of(int32_t word) {
@@ -73,28 +74,33 @@ __device__ __forceinline__ float madd(float acc, float v, float x) {
 }
 
 // bytes of dynamic shared memory for one block (the wrapper mirrors it:
-// ops/csr5_kernel.py::spmm_smem_bytes)
-size_t smem_bytes(int sigma, int nends, int rc) {
-    return ((size_t)nends * rc + (size_t)kLanes * rc + (size_t)kWarps * rc) * sizeof(float) +
-           (size_t)sigma * kLanes * sizeof(uint16_t);
+// ops/csr5_kernel.py::spmm_smem_bytes); K2p adds its high codes
+size_t smem_bytes(int sigma, int nends, int rc, int packed) {
+    size_t b = ((size_t)nends * rc + (size_t)kLanes * rc + (size_t)kWarps * rc) * sizeof(float) +
+               (size_t)sigma * kLanes * sizeof(uint16_t);
+    if (packed) b += (size_t)(sigma / 2) * kLanes * sizeof(uint16_t);
+    return b;
 }
 
-template <typename V, int RC>
-__global__ void __launch_bounds__(kLanes)
-csr5_spmm_tile_kernel(const int32_t* __restrict__ col,
-                      const V* __restrict__ val,
-                      const int32_t* __restrict__ win_map,
-                      const int32_t* __restrict__ tile_ptr,
-                      const float* __restrict__ x,
-                      float* __restrict__ y,
-                      int sigma, int capw, int win_rel, int nends, int m, int R,
-                      long long xs_c, long long xs_r, long long ys_row,
-                      long long ys_r, int vec) {
+// One tile of K2 (PACKED false: col is col_idx_tiles) or K2p (PACKED true:
+// col is col_packed, pages the page lists).
+template <typename V, int RC, bool PACKED>
+__device__ __forceinline__ void spmm_tile(const int32_t* __restrict__ col,
+                                          const V* __restrict__ val,
+                                          const int32_t* __restrict__ win_map,
+                                          const int32_t* __restrict__ tile_ptr,
+                                          const int32_t* __restrict__ pages, int pmax,
+                                          const float* __restrict__ x,
+                                          float* __restrict__ y,
+                                          int sigma, int capw, int win_rel, int nends, int m,
+                                          int R, long long xs_c, long long xs_r,
+                                          long long ys_row, long long ys_r, int vec) {
     extern __shared__ float smem[];
     float* wloc = smem;                                 // (nends, RC)
     float* carry = wloc + (size_t)nends * RC;           // (128, RC)
     float* warp_total = carry + kLanes * RC;            // (kWarps, RC)
     uint16_t* end_id = reinterpret_cast<uint16_t*>(warp_total + kWarps * RC);  // (sigma, 128)
+    uint16_t* hi_code = end_id + (size_t)sigma * kLanes;  // (sigma/2, 128), K2p
     __shared__ int warp_count[kWarps];
 
     const int t = blockIdx.x;
@@ -102,10 +108,12 @@ csr5_spmm_tile_kernel(const int32_t* __restrict__ col,
     const int warp = l >> 5;
     const int wl = l & 31;
     const size_t tile0 = (size_t)t * sigma * kLanes;
+    const int h = sigma >> 1;
     const int32_t* wm = win_map + (size_t)t * capw;
     const int rs = tile_ptr[t];
     const int a = rs & (kLanes - 1);  // slot of the tile's first row
     const int base = rs - a;          // 128-aligned row of slot 0
+    const int32_t* pages_t = pages + (size_t)t * pmax;  // K2p: the tile's page list
 
     // --- once per tile: mark and number the row ends the slots name -------
     for (int s = 0; s < sigma; ++s) end_id[s * kLanes + l] = 0;
@@ -138,10 +146,12 @@ csr5_spmm_tile_kernel(const int32_t* __restrict__ col,
         float run[RC];
 #pragma unroll
         for (int c = 0; c < RC; ++c) run[c] = 0.f;
-        for (int s = 0; s < sigma; ++s) {
+        // row s of the tile with column cidx: RC products, the running sums,
+        // stored where a row ends
+        auto step = [&](int s, int cidx) {
             const size_t e = tile0 + (size_t)s * kLanes + l;
             const float v = to_f32(val[e]);
-            const float* xr = x + (size_t)col[e] * xs_c + (size_t)r0 * xs_r;
+            const float* xr = x + (size_t)cidx * xs_c + (size_t)r0 * xs_r;
             bool done = false;
             if constexpr (RC >= 4) {
                 if (vec) {
@@ -169,6 +179,18 @@ csr5_spmm_tile_kernel(const int32_t* __restrict__ col,
 #pragma unroll
                 for (int c = 0; c < RC; ++c) w[c] = run[c];
             }
+        };
+        if constexpr (PACKED) {
+            // rows s < sigma/2 take the low code of word s now and keep its
+            // high code for row s + sigma/2 (the same thread reads it back)
+            for (int s = 0; s < h; ++s) {
+                const uint32_t w = (uint32_t)__ldg(col + tile0 / 2 + (size_t)s * kLanes + l);
+                hi_code[s * kLanes + l] = (uint16_t)(w >> 16);
+                step(s, decode(w & 0xFFFFu, pages_t));
+            }
+            for (int s = h; s < sigma; ++s) step(s, decode(hi_code[(s - h) * kLanes + l], pages_t));
+        } else {
+            for (int s = 0; s < sigma; ++s) step(s, col[tile0 + (size_t)s * kLanes + l]);
         }
 
         // 2. exclusive scan of the lane totals, per rhs (K1's order)
@@ -234,33 +256,55 @@ csr5_spmm_tile_kernel(const int32_t* __restrict__ col,
     }
 }
 
+#define K2_PARAMS                                                                          \
+    const int32_t *__restrict__ col, const V *__restrict__ val,                            \
+        const int32_t *__restrict__ win_map, const int32_t *__restrict__ tile_ptr,         \
+        const int32_t *__restrict__ pages, int pmax, const float *__restrict__ x,          \
+        float *__restrict__ y, int sigma, int capw, int win_rel, int nends, int m, int R, \
+        long long xs_c, long long xs_r, long long ys_row, long long ys_r, int vec
+#define K2_ARGS \
+    col, val, win_map, tile_ptr, pages, pmax, x, y, sigma, capw, win_rel, nends, m, R, xs_c, \
+        xs_r, ys_row, ys_r, vec
+
+template <typename V, int RC>
+__global__ void __launch_bounds__(kLanes) csr5_spmm_tile_kernel(K2_PARAMS) {
+    spmm_tile<V, RC, false>(K2_ARGS);
+}
+
+template <typename V, int RC>
+__global__ void __launch_bounds__(kLanes) csr5_spmm_packed_kernel(K2_PARAMS) {
+    spmm_tile<V, RC, true>(K2_ARGS);
+}
+
 template <typename V, int RC>
 int launch_rc(const void* col, const void* val, const void* win_map,
-              const void* tile_ptr, const void* x, void* y, int p, int sigma,
-              int capw, int win_rel, int nends, int m, int R, long long xs_c,
-              long long xs_r, long long ys_row, long long ys_r, int vec,
+              const void* tile_ptr, const void* pages, int pmax, int packed, const void* x,
+              void* y, int p, int sigma, int capw, int win_rel, int nends, int m, int R,
+              long long xs_c, long long xs_r, long long ys_row, long long ys_r, int vec,
               cudaStream_t stream) {
-    const size_t smem = smem_bytes(sigma, nends, RC);
-    cudaError_t err = cudaFuncSetAttribute(
-        csr5_spmm_tile_kernel<V, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const size_t smem = smem_bytes(sigma, nends, RC, packed);
+    auto kernel = packed ? &csr5_spmm_packed_kernel<V, RC> : &csr5_spmm_tile_kernel<V, RC>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    csr5_spmm_tile_kernel<V, RC><<<p, kLanes, smem, stream>>>(
-        (const int32_t*)col, (const V*)val, (const int32_t*)win_map,
-        (const int32_t*)tile_ptr, (const float*)x, (float*)y, sigma, capw, win_rel,
-        nends, m, R, xs_c, xs_r, ys_row, ys_r, vec);
+    kernel<<<p, kLanes, smem, stream>>>(
+        (const int32_t*)col, (const V*)val, (const int32_t*)win_map, (const int32_t*)tile_ptr,
+        (const int32_t*)pages, pmax, (const float*)x, (float*)y, sigma, capw, win_rel, nends,
+        m, R, xs_c, xs_r, ys_row, ys_r, vec);
     return (int)cudaGetLastError();
 }
 
 template <typename V>
 int launch(const void* col, const void* val, const void* win_map, const void* tile_ptr,
-           const void* x, void* y, int p, int sigma, int capw, int win_rel, int nends,
-           int m, int R, long long xs_c, long long xs_r, long long ys_row, long long ys_r,
-           int rc, int vec, void* stream) {
+           const void* pages, int pmax, int packed, const void* x, void* y, int p, int sigma,
+           int capw, int win_rel, int nends, int m, int R, long long xs_c, long long xs_r,
+           long long ys_row, long long ys_r, int rc, int vec, void* stream) {
     if (p <= 0 || R <= 0) return 0;
     const cudaStream_t s = (cudaStream_t)stream;
-#define K2_AT(RCV)                                                                        \
-    return launch_rc<V, RCV>(col, val, win_map, tile_ptr, x, y, p, sigma, capw, win_rel, \
-                             nends, m, R, xs_c, xs_r, ys_row, ys_r, vec, s)
+#define K2_AT(RCV)                                                                          \
+    return launch_rc<V, RCV>(col, val, win_map, tile_ptr, pages, pmax, packed, x, y, p,    \
+                             sigma, capw, win_rel, nends, m, R, xs_c, xs_r, ys_row, ys_r, \
+                             vec, s)
     switch (rc) {
         case 1: K2_AT(1);
         case 2: K2_AT(2);
@@ -278,25 +322,28 @@ extern "C" {
 
 // Y (float32, zeroed by the caller) += A @ X for a CSR5 matrix with float32
 // values, in chunks of rc in {1, 2, 4, 8, 16} right-hand sides. vec: X rows
-// are read with 16 B loads (xs_r == 1, R % 4 == 0, X 16 B aligned). Returns
-// the CUDA error code of the launch (0 on success).
+// are read with 16 B loads (xs_r == 1, R % 4 == 0, X 16 B aligned). packed:
+// col is col_packed and pages the (p, pmax) page lists (K2p); else col is
+// col_idx_tiles and pages is unused (K2). Returns the CUDA error code of the
+// launch (0 on success).
 int csr5_spmm_f32(const void* col, const void* val, const void* win_map,
-                  const void* tile_ptr, const void* x, void* y, int p, int sigma,
-                  int capw, int win_rel, int nends, int m, int R, long long xs_c,
-                  long long xs_r, long long ys_row, long long ys_r, int rc, int vec,
-                  void* stream) {
-    return launch<float>(col, val, win_map, tile_ptr, x, y, p, sigma, capw, win_rel, nends,
-                         m, R, xs_c, xs_r, ys_row, ys_r, rc, vec, stream);
+                  const void* tile_ptr, const void* pages, int pmax, int packed,
+                  const void* x, void* y, int p, int sigma, int capw, int win_rel, int nends,
+                  int m, int R, long long xs_c, long long xs_r, long long ys_row,
+                  long long ys_r, int rc, int vec, void* stream) {
+    return launch<float>(col, val, win_map, tile_ptr, pages, pmax, packed, x, y, p, sigma, capw,
+                         win_rel, nends, m, R, xs_c, xs_r, ys_row, ys_r, rc, vec, stream);
 }
 
 // The same with bfloat16 values (products and sums stay float32).
 int csr5_spmm_bf16(const void* col, const void* val, const void* win_map,
-                   const void* tile_ptr, const void* x, void* y, int p, int sigma,
-                   int capw, int win_rel, int nends, int m, int R, long long xs_c,
-                   long long xs_r, long long ys_row, long long ys_r, int rc, int vec,
-                   void* stream) {
-    return launch<__nv_bfloat16>(col, val, win_map, tile_ptr, x, y, p, sigma, capw, win_rel,
-                                 nends, m, R, xs_c, xs_r, ys_row, ys_r, rc, vec, stream);
+                   const void* tile_ptr, const void* pages, int pmax, int packed,
+                   const void* x, void* y, int p, int sigma, int capw, int win_rel, int nends,
+                   int m, int R, long long xs_c, long long xs_r, long long ys_row,
+                   long long ys_r, int rc, int vec, void* stream) {
+    return launch<__nv_bfloat16>(col, val, win_map, tile_ptr, pages, pmax, packed, x, y, p,
+                                 sigma, capw, win_rel, nends, m, R, xs_c, xs_r, ys_row, ys_r,
+                                 rc, vec, stream);
 }
 
 const char* csr5_spmm_error_string(int code) {

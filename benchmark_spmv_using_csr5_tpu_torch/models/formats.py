@@ -117,9 +117,10 @@ class CSR5Matrix:
     ``format_cuda.h:525-744``). ``win_map[t, d]`` packs the in-tile
     position of the last element of window slot d's row as
     ``sub | lane << 16`` with flag bits 23 (first-row slot) and 24
-    (d >= tile_ptr[t] % 128). The port always keeps ``col_idx_tiles``:
-    its kernel streams raw int32 columns. ``pages``, ``page_cnt`` and
-    ``col_packed`` are the JAX package's TPU gather plan, kept for parity.
+    (d >= tile_ptr[t] % 128). The port always keeps ``col_idx_tiles``;
+    where ``col_packed`` exists (sigma % 16 == 0, pmax <= 512) the kernels
+    stream it with ``pages`` instead (K1p, K2p), as the JAX kernel does.
+    ``page_cnt`` is the JAX package's TPU gather plan, kept for parity.
     """
 
     shape: Tuple[int, int]
@@ -193,7 +194,18 @@ def col_tiles_of(a5: CSR5Matrix) -> torch.Tensor:
     """
     if a5.col_idx_tiles is not None:
         return a5.col_idx_tiles
+    return col_tiles_from_packed(a5)
+
+
+def col_tiles_from_packed(a5: CSR5Matrix) -> torch.Tensor:
+    """The (p, sigma, omega) int32 column plane decoded from ``col_packed``
+    and ``pages``, whether or not the raw plane is present: the decode of
+    kernels K1p and K2p in plain torch. Word (t, s, l) holds the code of
+    element (t, s, l) in its low half and of (t, s + sigma/2, l) in its
+    high half."""
     cp = a5.col_packed  # (p, sigma/2, omega) int32, two codes per word
+    if cp is None:
+        raise ValueError("the matrix has no col_packed plane (sigma % 16 != 0 or pmax > 512)")
     p, s2, om = cp.shape
     codes = torch.cat([cp & 0xFFFF, (cp >> 16) & 0xFFFF], dim=1)
     lane = codes & 127

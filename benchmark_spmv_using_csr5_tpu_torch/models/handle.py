@@ -9,8 +9,11 @@ handle owns the format state machine CSR <-> CSR5
 (``anonymouslib_cuda.h:28-53``).
 
 The port's handle keeps its data on ``device`` (default: the card). A
-float32 matrix runs K1 (``spmv``) and K2 (``spmm``); a float64 matrix
-gets a float64 value plane and ``spmv`` runs K4. x is used in the dtype
+float32 matrix runs K1 or K1p (``spmv``) and K2 or K2p (``spmm``); beyond
+the JAX package's VMEM cap (``should_slice``) it holds the row-sliced form
+instead, as the JAX handle does, and runs K3 (``spmv``) and K2/K2p per
+slice (``spmm``). A float64 matrix gets a float64 value plane and
+``spmv`` runs K4; it never slices. x is used in the dtype
 it is given: a float64 x on a float32 matrix, or the reverse, raises in
 the dispatcher rather than being cast.
 """
@@ -31,6 +34,7 @@ from ..config import (
     compute_sigma,
     resolve_device,
 )
+from ..ops.bigslice import SlicedCSR5, build_csr5_sliced, should_slice, sliced_spmm, sliced_spmv
 from ..ops.convert import build_csr5, build_csr5_autotuned, csr5_to_csr
 from ..ops.csr5_spmv import csr5_spmm, csr5_spmv
 from ..ops.reference import csr_spmv
@@ -46,6 +50,9 @@ class SpMVHandle:
         self._format: Optional[Format] = None
         self._csr: Optional[CSRMatrix] = None
         self._csr5: Optional[CSR5Matrix] = None
+        #: the row-sliced form, and the right-hand-side count it was sized for
+        self._csr5_sliced: Optional[SlicedCSR5] = None
+        self._sliced_rhs = 1
         self._host_csr = None  # host-side (row_ptr, col_idx, values, shape)
         self._x: Optional[torch.Tensor] = None
         self._sigma: int = AUTO_TUNED_SIGMA
@@ -66,6 +73,7 @@ class SpMVHandle:
         # wrong matrix)
         self._host_csr = None
         self._csr5 = None
+        self._csr5_sliced = None
         if not (isinstance(values, torch.Tensor) and values.is_cuda):
             # keep a host copy: conversion is host-side, so a matrix given
             # on the host never round-trips through the card
@@ -86,10 +94,10 @@ class SpMVHandle:
 
     def as_csr5(self) -> "SpMVHandle":
         """Convert to CSR5. A float64 matrix keeps a float64 value plane
-        (K4's). The JAX handle converts to the row-sliced form on a TPU
-        beyond the VMEM cap (``handle.py:89-96``); this one never slices:
-        the row-sliced form and its kernel K3 come with the large-matrix
-        slice of the port."""
+        (K4's). A float32 matrix beyond the JAX package's VMEM cap
+        (``should_slice``) converts straight to the row-sliced form, as the
+        JAX handle does (``handle.py:89-96``); one that cannot be sliced
+        takes the whole-matrix form."""
         if self._format == Format.CSR5:
             return self
         if self._csr is None:
@@ -97,23 +105,31 @@ class SpMVHandle:
         cfg = CSR5Config(sigma=self.compute_sigma())
         src = self._host_csr if self._host_csr is not None else self._csr
         vdt = torch.float64 if self._csr.values.dtype == torch.float64 else None
-        if self._sigma == AUTO_TUNED_SIGMA:
-            # auto sigma: the structure-aware re-tune; an explicit
-            # setSigma skips it, like the reference's fixed-sigma path
-            # (anonymouslib_cuda.h:295)
-            self._csr5 = build_csr5_autotuned(src, cfg, value_dtype=vdt, device=self.device)
-        else:
-            self._csr5 = build_csr5(src, cfg, value_dtype=vdt, device=self.device)
+        if vdt is None and should_slice(*self.shape):
+            self._csr5_sliced = build_csr5_sliced(src, cfg, device=self.device)
+            self._sliced_rhs = 1
+        if self._csr5_sliced is None:
+            if self._sigma == AUTO_TUNED_SIGMA:
+                # auto sigma: the structure-aware re-tune; an explicit
+                # setSigma skips it, like the reference's fixed-sigma path
+                # (anonymouslib_cuda.h:295)
+                self._csr5 = build_csr5_autotuned(src, cfg, value_dtype=vdt, device=self.device)
+            else:
+                self._csr5 = build_csr5(src, cfg, value_dtype=vdt, device=self.device)
         self._format = Format.CSR5
         return self
 
     def as_csr(self) -> "SpMVHandle":
         if self._format == Format.CSR:
             return self
-        if self._csr5 is None:
+        if self._csr5 is None and self._csr5_sliced is None:
             raise ValueError("asCSR5 first (Status.INVALID_HANDLE)")
-        self._csr = csr5_to_csr(self._csr5)
-        self._csr5 = None
+        if self._csr5_sliced is not None:
+            # the CSR from inputCSR is still the matrix: drop the slices
+            self._csr5_sliced = None
+        else:
+            self._csr = csr5_to_csr(self._csr5)
+            self._csr5 = None
         self._format = Format.CSR
         return self
 
@@ -145,7 +161,9 @@ class SpMVHandle:
         when it is given."""
         if self._x is None:
             raise ValueError("setX first (Status.INVALID_HANDLE)")
-        if self._format == Format.CSR5:
+        if self._format == Format.CSR5 and self._csr5_sliced is not None:
+            y = sliced_spmv(self._csr5_sliced, self._x, alpha, backend=self._backend)
+        elif self._format == Format.CSR5:
             y = csr5_spmv(self._csr5, self._x, alpha, backend=self._backend)
         elif self._format == Format.CSR:
             y = csr_spmv(self._csr, self._x, alpha)
@@ -163,6 +181,18 @@ class SpMVHandle:
             raise ValueError("X must be (n, R) (Status.INVALID_HANDLE)")
         if self._format != Format.CSR5:
             raise ValueError("asCSR5 first (Status.INVALID_HANDLE)")
+        if self._csr5_sliced is not None:
+            # slices from as_csr5 were sized for one rhs: re-slice for R
+            # (the JAX package's cap // R) and keep that form until R
+            # changes, as the JAX handle does (handle.py:181-199)
+            R = int(x_mat.shape[1])
+            if self._sliced_rhs != R:
+                src = self._host_csr if self._host_csr is not None else self._csr
+                cfg = CSR5Config(sigma=self.compute_sigma())
+                sl_r = build_csr5_sliced(src, cfg, num_rhs=R, device=self.device)
+                if sl_r is not None:
+                    self._csr5_sliced, self._sliced_rhs = sl_r, R
+            return sliced_spmm(self._csr5_sliced, x_mat, alpha, backend=self._backend)
         return csr5_spmm(self._csr5, x_mat, alpha, backend=self._backend)
 
     def destroy(self) -> int:
@@ -172,6 +202,7 @@ class SpMVHandle:
             self.as_csr()
         self._csr = None
         self._csr5 = None
+        self._csr5_sliced = None
         self._host_csr = None
         self._x = None
         self._format = None
@@ -193,6 +224,10 @@ class SpMVHandle:
     @property
     def csr5(self) -> Optional[CSR5Matrix]:
         return self._csr5
+
+    @property
+    def csr5_sliced(self) -> Optional[SlicedCSR5]:
+        return self._csr5_sliced
 
     @property
     def csr(self) -> Optional[CSRMatrix]:

@@ -1,9 +1,19 @@
-"""The Python wrappers of K1 and K2, the hand-written CUDA CSR5 kernels.
+"""The Python wrappers of K1, K1p, K2 and K2p, the hand-written CUDA CSR5
+kernels.
 
 K1 (``csrc/csr5_spmv.cu``) replaces the JAX package's Pallas kernel
 ``ops/csr5_kernel.py::_spmv_kernel`` at R=1. It takes one ``(sigma, 128)``
 tile per 128-thread block and adds each tile's row partial sums into a
 zeroed ``m_pad`` float32 y with atomics; y is then cut to ``[:m]``.
+
+K1p and K2p are K1 and K2 streaming the packed column plane
+``col_packed`` (two uint16 codes ``lane | local_page << 7`` per int32
+word) with the page lists ``pages``: 2 B of columns per nonzero instead
+of 4. As ``_csr5_spmv_pallas_jit`` and ``_csr5_spmm_pallas_jit`` do
+(``csr5_kernel.py:816-820``, ``:870-874``), :func:`csr5_spmv_cuda` and
+:func:`csr5_spmm_cuda` stream the packed plane whenever the matrix has
+one (sigma % 16 == 0 and pmax <= 512); the raw plane is then not read.
+Each of the four kernels has its own launch counter.
 
 K2 (``csrc/csr5_spmm.cu``) is the same kernel at R > 1
 (``_csr5_spmm_pallas_jit``, ``csr5_spmm_pallas``): each tile's column and
@@ -35,8 +45,14 @@ MAX_SIGMA = 448
 
 #: K1 launches so far in this process (the wrapper adds one per launch)
 launches = 0
+#: K1p launches so far in this process
+packed_launches = 0
 #: K2 launches so far in this process
 spmm_launches = 0
+#: K2p launches so far in this process
+spmm_packed_launches = 0
+#: the largest page list the packed codes can address (9 bits)
+MAX_PACKED_PAGES = 512
 
 #: K2's right-hand sides per chunk: at most 16 accumulators per thread
 SPMM_MAX_CHUNK = 16
@@ -61,6 +77,11 @@ def _lib() -> ctypes.CDLL:
             # col, val, win_map, tile_ptr, x, y, p, sigma, capw, win_rel, stream
             fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
             fn.restype = i32
+        for fn in (lib.csr5_spmv_packed_f32, lib.csr5_spmv_packed_bf16):
+            # colp, val, win_map, tile_ptr, pages, x, y, p, sigma, capw,
+            # win_rel, pmax, stream
+            fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+            fn.restype = i32
         lib.csr5_cuda_error_string.argtypes = [i32]
         lib.csr5_cuda_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -74,9 +95,10 @@ def _lib_spmm() -> ctypes.CDLL:
         lib = cuda_build.load("csr5_spmm")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.csr5_spmm_f32, lib.csr5_spmm_bf16):
-            # col, val, win_map, tile_ptr, x, y, p, sigma, capw, win_rel,
-            # nends, m, R, xs_c, xs_r, ys_row, ys_r, rc, vec, stream
-            fn.argtypes = [ptr] * 6 + [i32] * 7 + [i64] * 4 + [i32] * 2 + [ptr]
+            # col, val, win_map, tile_ptr, pages, pmax, packed, x, y, p,
+            # sigma, capw, win_rel, nends, m, R, xs_c, xs_r, ys_row, ys_r,
+            # rc, vec, stream
+            fn.argtypes = [ptr] * 5 + [i32] * 2 + [ptr] * 2 + [i32] * 7 + [i64] * 4 + [i32] * 2 + [ptr]
             fn.restype = i32
         lib.csr5_spmm_error_string.argtypes = [i32]
         lib.csr5_spmm_error_string.restype = ctypes.c_char_p
@@ -98,8 +120,26 @@ def _expect(t: torch.Tensor, name: str, dtype, shape, device, who="csr5_spmv_cud
 
 
 def _expect_planes(a5: CSR5Matrix, device, who: str) -> None:
+    """The planes the kernels read, checked; the column plane is
+    ``col_packed`` with its ``pages`` when the matrix has one, else
+    ``col_idx_tiles``. Raises where an index would pass int32."""
     p, sig, capw = a5.num_tiles, a5.sigma, a5.capw
-    _expect(a5.col_idx_tiles, "col_idx_tiles", (torch.int32,), (p, sig, LANES), device, who)
+    if p * sig * LANES > _INT32_MAX or a5.m_pad > _INT32_MAX:
+        raise ValueError(
+            f"{who}: p * sigma * 128 = {p * sig * LANES} and m_pad = {a5.m_pad} must stay "
+            "below 2**31 (int32 tile positions and rows): slice the matrix "
+            "(ops/bigslice.py)"
+        )
+    if a5.col_packed is not None:
+        if sig % 16 or a5.pmax > MAX_PACKED_PAGES:
+            raise ValueError(
+                f"{who}: col_packed with sigma={sig}, pmax={a5.pmax}; the packed kernels "
+                f"take sigma % 16 == 0 and pmax <= {MAX_PACKED_PAGES}"
+            )
+        _expect(a5.col_packed, "col_packed", (torch.int32,), (p, sig // 2, LANES), device, who)
+        _expect(a5.pages, "pages", (torch.int32,), (p, a5.pmax), device, who)
+    else:
+        _expect(a5.col_idx_tiles, "col_idx_tiles", (torch.int32,), (p, sig, LANES), device, who)
     _expect(
         a5.val_tiles, "val_tiles", (torch.float32, torch.bfloat16), (p, sig, LANES), device, who
     )
@@ -108,8 +148,9 @@ def _expect_planes(a5: CSR5Matrix, device, who: str) -> None:
 
 
 def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
-    """y = alpha * A @ x through the CUDA kernel (CUDA tensors only)."""
-    global launches
+    """y = alpha * A @ x through K1p when the matrix has ``col_packed``,
+    else K1 (CUDA tensors only)."""
+    global launches, packed_launches
     if not x.is_cuda:
         raise ValueError(
             "csr5_spmv_cuda takes CUDA tensors; CPU tensors go through "
@@ -135,36 +176,46 @@ def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     _expect_planes(a5, dev, "csr5_spmv_cuda")
 
     lib = _lib()
-    fn = lib.csr5_spmv_bf16 if a5.val_tiles.dtype == torch.bfloat16 else lib.csr5_spmv_f32
+    bf16 = a5.val_tiles.dtype == torch.bfloat16
+    packed = a5.col_packed is not None
     xa = x if alpha == 1.0 else x * alpha
     y = torch.zeros(a5.m_pad, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(
-            a5.col_idx_tiles.data_ptr(),
-            a5.val_tiles.data_ptr(),
-            a5.win_map.data_ptr(),
-            a5.tile_ptr.data_ptr(),
-            xa.data_ptr(),
-            y.data_ptr(),
-            p,
-            sig,
-            capw,
-            int(a5.win_rel),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if packed:
+            fn = lib.csr5_spmv_packed_bf16 if bf16 else lib.csr5_spmv_packed_f32
+            rc = fn(
+                a5.col_packed.data_ptr(), a5.val_tiles.data_ptr(), a5.win_map.data_ptr(),
+                a5.tile_ptr.data_ptr(), a5.pages.data_ptr(), xa.data_ptr(), y.data_ptr(),
+                p, sig, capw, int(a5.win_rel), a5.pmax, stream,
+            )
+        else:
+            fn = lib.csr5_spmv_bf16 if bf16 else lib.csr5_spmv_f32
+            rc = fn(
+                a5.col_idx_tiles.data_ptr(), a5.val_tiles.data_ptr(), a5.win_map.data_ptr(),
+                a5.tile_ptr.data_ptr(), xa.data_ptr(), y.data_ptr(),
+                p, sig, capw, int(a5.win_rel), stream,
+            )
     if rc != 0:
         msg = lib.csr5_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"csr5_spmv_cuda: kernel launch failed: {msg} ({rc})")
-    launches += 1
+    if packed:
+        packed_launches += 1
+    else:
+        launches += 1
     return y[: a5.m]
 
 
-def spmm_smem_bytes(sigma: int, nends: int, rc: int) -> int:
-    """K2's dynamic shared memory per block (``csrc/csr5_spmm.cu::
-    smem_bytes``): the row-end sums (nends, rc), the lane carries (128, rc)
-    and warp totals (4, rc) in float32, and the uint16 row-end ids of the
-    (sigma, 128) tile."""
-    return (nends * rc + LANES * rc + 4 * rc) * 4 + sigma * LANES * 2
+def spmm_smem_bytes(sigma: int, nends: int, rc: int, packed: bool = False) -> int:
+    """K2's shared memory per block (``csrc/csr5_spmm.cu::smem_bytes``):
+    the row-end sums (nends, rc), the lane carries (128, rc) and warp
+    totals (4, rc) in float32, and the uint16 row-end ids of the (sigma,
+    128) tile; K2p adds the high codes of the (sigma/2, 128) packed words
+    (uint16)."""
+    b = (nends * rc + LANES * rc + 4 * rc) * 4 + sigma * LANES * 2
+    if packed:
+        b += (sigma // 2) * LANES * 2
+    return b
 
 
 def spmm_chunk(a5: CSR5Matrix, num_rhs: int) -> int:
@@ -175,12 +226,13 @@ def spmm_chunk(a5: CSR5Matrix, num_rhs: int) -> int:
     if num_rhs < 1:
         return 0
     nends = min(a5.capw, a5.sigma * LANES)
+    packed = a5.col_packed is not None
     rc = 1
     while rc < min(num_rhs, SPMM_MAX_CHUNK):
         rc *= 2
-    while rc > 1 and spmm_smem_bytes(a5.sigma, nends, rc) > SPMM_SMEM_BUDGET:
+    while rc > 1 and spmm_smem_bytes(a5.sigma, nends, rc, packed) > SPMM_SMEM_BUDGET:
         rc //= 2
-    return rc if spmm_smem_bytes(a5.sigma, nends, rc) <= SMEM_MAX else 0
+    return rc if spmm_smem_bytes(a5.sigma, nends, rc, packed) <= SMEM_MAX else 0
 
 
 def spmm_supported(a5: CSR5Matrix, num_rhs: int) -> bool:
@@ -198,10 +250,11 @@ def spmm_supported(a5: CSR5Matrix, num_rhs: int) -> bool:
 def csr5_spmm_cuda(
     a5: CSR5Matrix, x: torch.Tensor, alpha=1.0, layout: str = "nr"
 ) -> torch.Tensor:
-    """Y = alpha * A @ X through K2 (CUDA tensors only). ``layout="nr"``:
-    X (n, R) in, Y (m, R) out; ``layout="rn"``: X^T (R, n) in, Y^T (R, m)
-    out (the JAX ``csr5_spmm_pallas`` layouts)."""
-    global spmm_launches
+    """Y = alpha * A @ X through K2p when the matrix has ``col_packed``,
+    else K2 (CUDA tensors only). ``layout="nr"``: X (n, R) in, Y (m, R)
+    out; ``layout="rn"``: X^T (R, n) in, Y^T (R, m) out (the JAX
+    ``csr5_spmm_pallas`` layouts)."""
+    global spmm_launches, spmm_packed_launches
     who = "csr5_spmm_cuda"
     if not x.is_cuda:
         raise ValueError(f"{who} takes CUDA tensors; CPU tensors go through csr5_spmm_torch")
@@ -239,11 +292,15 @@ def csr5_spmm_cuda(
     ys_row, ys_r = (1, m) if rn else (R, 1)
     vec = int(not rn and R % 4 == 0 and xa.data_ptr() % 16 == 0)
     rc = spmm_chunk(a5, R)
+    packed = a5.col_packed is not None
     rcode = fn(
-        a5.col_idx_tiles.data_ptr(),
+        (a5.col_packed if packed else a5.col_idx_tiles).data_ptr(),
         a5.val_tiles.data_ptr(),
         a5.win_map.data_ptr(),
         a5.tile_ptr.data_ptr(),
+        a5.pages.data_ptr() if packed else 0,
+        a5.pmax if packed else 0,
+        int(packed),
         xa.data_ptr(),
         y.data_ptr(),
         a5.num_tiles,
@@ -265,5 +322,8 @@ def csr5_spmm_cuda(
         msg = lib.csr5_spmm_error_string(rcode).decode(errors="replace")
         raise RuntimeError(f"{who}: kernel launch failed: {msg} ({rcode})")
     if a5.num_tiles > 0:
-        spmm_launches += 1
+        if packed:
+            spmm_packed_launches += 1
+        else:
+            spmm_launches += 1
     return y

@@ -8,9 +8,13 @@
 - :func:`csr5_spmm_torch`: the plain version of kernel K2, the twin of
   ``csr5_spmm_xla`` (``csr5_spmv.py:90-96``): the same steps with the R
   right-hand sides as a trailing dimension.
+- :func:`csr5_spmv_packed_torch` and :func:`csr5_spmm_packed_torch`: the
+  plain versions of K1p and K2p, the same steps on the columns decoded
+  from ``col_packed`` and ``pages`` even where the raw plane is present.
 - :func:`csr5_spmv` and :func:`csr5_spmm`: the dispatchers. CUDA tensors
   go through the hand-written kernels, by dtype: float32 x to K1 or K2
-  (:mod:`.csr5_kernel`), float64 x on a float64 plane to K4
+  (K1p or K2p on a matrix with ``col_packed``, :mod:`.csr5_kernel`),
+  float64 x on a float64 plane to K4
   (:mod:`.csr5_f64`). CPU tensors go through the plain versions, which
   are dtype-generic: :func:`csr5_spmv_torch` on float64 is K4's plain
   version. Nothing else: a CUDA tensor never reaches a plain version
@@ -20,9 +24,11 @@
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from ..models.formats import CSR5Matrix, col_tiles_of
+from ..models.formats import CSR5Matrix, col_tiles_from_packed, col_tiles_of
 from .dia import _on_cuda
 
 
@@ -82,6 +88,26 @@ def csr5_spmv_torch(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     R = 1 case of :func:`csr5_spmm_torch`, the same gather, products,
     cumsum in element order, window diff and scatter-add."""
     return csr5_spmm_torch(a5, x[:, None], alpha)[:, 0]
+
+
+def _decoded(a5: CSR5Matrix) -> CSR5Matrix:
+    """``a5`` with its raw column plane replaced by the decode of
+    ``col_packed``."""
+    return dataclasses.replace(a5, col_idx_tiles=col_tiles_from_packed(a5))
+
+
+def csr5_spmv_packed_torch(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
+    """The plain version of K1p: :func:`csr5_spmv_torch` on the columns
+    decoded from ``col_packed`` (raises when the matrix has none)."""
+    return csr5_spmv_torch(_decoded(a5), x, alpha)
+
+
+def csr5_spmm_packed_torch(
+    a5: CSR5Matrix, x: torch.Tensor, alpha=1.0, layout: str = "nr"
+) -> torch.Tensor:
+    """The plain version of K2p: :func:`csr5_spmm_torch` on the columns
+    decoded from ``col_packed``."""
+    return csr5_spmm_torch(_decoded(a5), x, alpha, layout)
 
 
 def _is_f64(a5: CSR5Matrix, x: torch.Tensor, who: str) -> bool:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone into
 ``_build/lib<name>.so`` inside the package (listed in ``.gitignore``),
 at first use, for ``sm_90a`` (Hopper). The library is rebuilt when its
-source is newer; :func:`build` starts one nvcc per stale source at once. Nothing is built when a module is imported, and a failed
-build raises: there is no fallback.
+source, or a shared header ``csrc/*.cuh``, is newer; :func:`build` starts
+one nvcc per stale source at once. Nothing is built when a module is
+imported, and a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -50,14 +51,24 @@ def _paths(name: str):
     return os.path.join(CSRC_DIR, f"{name}.cu"), os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def _headers_mtime() -> float:
+    """The newest modification time of the shared headers ``csrc/*.cuh``."""
+    return max(
+        (os.path.getmtime(os.path.join(CSRC_DIR, f)) for f in os.listdir(CSRC_DIR)
+         if f.endswith(".cuh")),
+        default=0.0,
+    )
+
+
 def _build_stale(names) -> None:
     """Build every library of ``names`` that is missing or older than its
-    source: one nvcc process per source, all started together. Call with
-    ``_lock`` held."""
+    source or a shared header: one nvcc process per source, all started
+    together. Call with ``_lock`` held."""
     stale = []
+    hdr = _headers_mtime()
     for name in names:
         src, out = _paths(name)
-        if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+        if os.path.exists(out) and os.path.getmtime(out) >= max(os.path.getmtime(src), hdr):
             build_seconds.setdefault(name, 0.0)
         else:
             stale.append((name, src, out))

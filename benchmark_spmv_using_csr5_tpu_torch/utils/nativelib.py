@@ -3,8 +3,13 @@
 A copy of the conversion entry points of
 ``benchmark_spmv_using_csr5_tpu/utils/nativelib.py``: the JAX package
 cannot be imported without jax and flax, which the port does not depend
-on. It loads the same ``native/libcsr5native.so``, built from the same
-``native/`` sources with ``make -C native`` the first time it is needed.
+on. It builds the same ``native/`` sources with ``make -C native`` the
+first time it is needed, but into its own copy,
+``benchmark_spmv_using_csr5_tpu_torch/_build/libcsr5native.so``: under an
+``fcntl`` file lock, into a temporary file that is then renamed over the
+copy. So processes that load the library at once (test workers) never
+rewrite it under one another, and never touch ``native/libcsr5native.so``,
+which the JAX package builds and loads.
 
 Every entry point returns None when the library is unavailable, and the
 conversion then takes its numpy fallback: these are host preprocessing
@@ -14,8 +19,10 @@ stages, not the device path.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
@@ -37,7 +44,8 @@ _REPO_ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libcsr5native.so")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libcsr5native.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -57,6 +65,32 @@ def _needs_build() -> bool:
     return False
 
 
+def _build() -> None:
+    """Build the port's copy of the library if it is missing or stale,
+    under an exclusive file lock shared by every process of this checkout:
+    make writes a temporary file, which is renamed over the copy. Raises
+    when the build fails."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, "libcsr5native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _needs_build():  # another process built it while we waited
+            return
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR, "-s", "-B", f"LIB={tmp}"],
+                check=True,
+                capture_output=True,
+                timeout=120,
+            )
+            os.chmod(tmp, 0o755)
+            os.replace(tmp, _LIB_PATH)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
 def _try_load() -> Optional[ctypes.CDLL]:
     global _lib, _build_failed
     with _lock:
@@ -69,17 +103,12 @@ def _try_load() -> Optional[ctypes.CDLL]:
                 _build_failed = True
                 return None
             try:
-                subprocess.run(
-                    ["make", "-C", _NATIVE_DIR, "-s", "-B"],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
+                _build()
             except (OSError, subprocess.SubprocessError):
                 if not os.path.exists(_LIB_PATH):
                     _build_failed = True
                     return None
-                # no toolchain but a prebuilt .so exists: use it as-is
+                # no toolchain but an earlier build exists: use it as-is
         try:
             lib = ctypes.CDLL(_LIB_PATH)
         except OSError:

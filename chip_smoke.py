@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main paths once on one card: CSR5 SpMV,
 the structural formats (DIA, HYB5, ``--format auto``), the
-multi-right-hand-side path (``--spmm K``: CSR5 SpMM, band-block SpMM) and
-the float64 path (``--dtype float64``, the SpMVHandle, the solvers).
+multi-right-hand-side path (``--spmm K``: CSR5 SpMM, band-block SpMM), the
+float64 path (``--dtype float64``, the SpMVHandle, the solvers) and the
+large-matrix path (the row-sliced form at 20M rows, the packed columns).
 
 Run from the root of the repository, with one NVIDIA GPU visible:
 
@@ -12,8 +13,8 @@ Phases, each of which must pass:
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc builds of
    every source under ``csrc/`` (``csr5_spmv.cu``, ``csr5_spmv_f64.cu``,
-   ``csr5_spmm.cu``, ``dia_spmv.cu``, ``bandmm.cu``) from the checkout,
-   all started at once;
+   ``csr5_spmm.cu``, ``dia_spmv.cu``, ``bandmm.cu``, ``csr5_sliced.cu``)
+   from the checkout, all started at once;
 2. kernel K1 against its plain PyTorch version on the card and against
    scipy, on the odd shapes of the TPU sweep (``scripts/smoke_chip.py``):
    one tile, few tiles, every sigma, aligned maps, a scattered band, a
@@ -72,7 +73,28 @@ Phases, each of which must pass:
 12. K4 and its plain version at df64_banded500k in turns, its device
     time, the library yardstick (``torch.sparse_csr_tensor @ x``, cuSPARSE
     through PyTorch, used nowhere in the port) beside every kernel, and
-    each kernel's bound from this run's inputs.
+    each kernel's bound from this run's inputs;
+13. kernels K1p and K2p (the packed column stream) and K3 (row-sliced
+    SpMV, one launch over every slice) against their plain versions on the
+    card and against scipy: K1p and K2p on the odd shapes of phase 2 at
+    sigma 16 and 32 (float32 and bfloat16 planes, R in {1, 2, 5, 8, 16,
+    17}, both layouts, K1 on the raw plane of the same matrix too), K3 over
+    forced multi-slice builds (an empty slice, a window past n, packed
+    slices, bfloat16 and float32 slices in one matrix), exact on integer
+    data at alpha 1 and -1.75; one random-float case each within 1e-5 of
+    each row's |A||x|;
+14. the large-matrix path at full width through the CLI's and the API's
+    own code: ``--synthetic banded:2000000:27`` (K1), ``banded:20000000:27``
+    (the row-sliced form, K3), the same matrix through ``run_benchmark(...,
+    backend="cuda")`` (one whole-matrix K1 pass), ``banded:500000:27
+    --sigma 16`` (K1p), fem3block600k with ``--autotune`` (sigma 16, K1p),
+    ``--sigma 16 --spmm 8`` (K2p) and the SpMVHandle at banded20M (K3), each
+    PASS with max rel err 0.0, the one SpMV kernel its launch counts name,
+    each phase's seconds and the peak host memory;
+15. in turns on the same inputs: K3 against one whole-matrix K1 pass at
+    banded20M, K1p against K1 on the raw plane and K2p against K2 at
+    banded500k sigma 16, with device times by torch.profiler, each one's
+    bound from this run's inputs and the cuSPARSE yardstick.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails. The last line of standard output is
@@ -103,8 +125,13 @@ K7_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/bandmm.cu"
 #: K4's TPU original (the double-single kernel) and source
 K4_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_df64.py:281"
 K4_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/csr5_spmv_f64.cu"
+#: K1p's, K2p's and K3's TPU originals (the packed decode of _spmv_kernel,
+#: and its xwin mode) and sources
+K1P_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_kernel.py:311"
+K3_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_kernel.py:247"
+K3_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/csr5_sliced.cu"
 #: every CUDA source of the port, built at once in phase 1
-SOURCES = ("csr5_spmv", "csr5_spmv_f64", "csr5_spmm", "dia_spmv", "bandmm")
+SOURCES = ("csr5_spmv", "csr5_spmv_f64", "csr5_spmm", "dia_spmv", "bandmm", "csr5_sliced")
 #: peak rates of one H100 SXM outside the tensor cores (NVIDIA's data
 #: sheet, at the full 700 W): float32 and float64 FLOP/s, for the bounds
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -1039,6 +1066,404 @@ def yardstick(dev, card, kind, df64, a64, mats):
     return out, (k4_ms, k4_plain_ms)
 
 
+def _narrow(sp, np):
+    """n = 100 < 128 columns, 700 rows whose first 300 are empty: sliced
+    with a small cap, the all-empty slice takes the window (0, 128), past
+    n (``tests/test_torch_bigslice.py``)."""
+    rng = np.random.default_rng(1)
+    rows = np.repeat(np.arange(300, 700), 5)
+    cols = np.concatenate([rng.choice(100, 5, replace=False) for _ in range(400)])
+    return sp.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(700, 100))
+
+
+def _tail_window(sp, np, synth):
+    """A band over rows 0-1999 and rows 2000-2999 that touch only columns
+    2950-2989 of n = 2990: the last slice's page-aligned window of 128
+    columns reaches past n."""
+    band = sp.csr_matrix(synth.banded(2000, 9))
+    rng = np.random.default_rng(4)
+    rows = np.repeat(np.arange(2000, 3000), 3)
+    tail = sp.csr_matrix((np.ones(rows.size), (rows, rng.integers(2950, 2990, rows.size))),
+                         shape=(3000, 2990))
+    return (sp.vstack([sp.hstack([band, sp.csr_matrix((2000, 990))]),
+                       sp.csr_matrix((1000, 2990))]) + tail).tocsr()
+
+
+def large_sweep(dev, rng) -> list:
+    """K1p, K2p and K3 against their plain versions on the card and
+    against scipy on the odd shapes of phase 2 at sigma 16 and 32 (K1p and
+    K2p: float32 and bfloat16 planes, R in SWEEP_RHS, both layouts; K1 on
+    the raw plane of the same matrix too), K3 over forced multi-slice
+    builds (small elem_cap: an empty slice, a window past n, empty rows,
+    packed and raw slices, a mix of bfloat16 and float32 slices), exact on
+    integer data at alpha 1 and -1.75; one random-float case each, within
+    FLOAT_RTOL of each row's |A||x|."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5, build_csr5_sliced
+    from benchmark_spmv_using_csr5_tpu_torch.ops import bigslice_kernel, csr5_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops.bigslice import sliced_spmv_torch
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import (
+        csr5_spmm_packed_torch, csr5_spmv_packed_torch,
+    )
+    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+
+    alpha = -1.75
+    rmax = max(SWEEP_RHS)
+    failed = []
+    cases = [(n, a, c, w) for n, a, c, w in sweep_cases(synth, CSR5Config)
+             if c is not None and c.sigma in (16, 32)]
+    for name, make in synth.EDGE_CASE_MATRICES.items():
+        for sig in (16, 32):
+            cases.append((f"edge_{name}_s{sig}", make(), CSR5Config(sigma=sig), "auto"))
+    cases.append(("fem_small_s16", synth.fem_blocks(6000, neighbors=9, node_bandwidth=600),
+                  CSR5Config(sigma=16), "auto"))
+    packed_cases = 0
+    for name, a_sp, cfg, win_mode in cases:
+        a = sp.csr_matrix(a_sp).astype(np.float32)
+        x = rng.integers(1, 10, a.shape[1]).astype(np.float32)
+        xm = rng.integers(1, 10, (a.shape[1], rmax)).astype(np.float32)
+        xd, xmd = torch.from_numpy(x).to(dev), torch.from_numpy(xm).to(dev)
+        for vdt in (torch.float32, torch.bfloat16):
+            a5 = build_csr5((a.indptr, a.indices, a.data, a.shape), cfg, value_dtype=vdt,
+                            win_mode=win_mode, device=dev)
+            tag = f"K1p/K2p {name}/{str(vdt).removeprefix('torch.')}"
+            if a5.col_packed is None:
+                say(f"[{tag}] no packed plane (pmax {a5.pmax} > 512): not a K1p case")
+                continue
+            packed_cases += 1
+            raw = dataclasses.replace(a5, col_packed=None)
+            errs = []
+            for al in (1.0, alpha):
+                y_k = csr5_kernel.csr5_spmv_cuda(a5, xd, al).cpu()
+                y_p = csr5_spmv_packed_torch(a5, xd, al).cpu()
+                y_1 = csr5_kernel.csr5_spmv_cuda(raw, xd, al).cpu()
+                if not (_exact(y_k, y_p, torch.from_numpy((al * (a @ x)).astype(np.float32)))
+                        and torch.equal(y_k, y_1)):
+                    errs.append(f"K1p alpha={al}")
+            for R in SWEEP_RHS:
+                xr = xmd[:, :R].contiguous()
+                y_nr, y_rn = _both_layouts(csr5_kernel.csr5_spmm_cuda, a5, xr, alpha)
+                y_p = csr5_spmm_packed_torch(a5, xr, alpha).cpu()
+                y_s = torch.from_numpy((alpha * (a @ xm[:, :R])).astype(np.float32))
+                if not (_exact(y_nr, y_p, y_s) and torch.equal(y_rn, y_s)):
+                    errs.append(f"K2p R={R}")
+            failed += [f"{tag} {e}" for e in errs]
+            say(f"[{tag}] {'PASS' if not errs else 'FAIL ' + ','.join(errs)} sigma={a5.sigma} "
+                f"pmax={a5.pmax} contig={a5.pages_contig} tiles={a5.num_tiles} "
+                f"win={'wrapped' if a5.win_rel else 'aligned'} K2p R {SWEEP_RHS} nr+rn, "
+                f"chunk(8)={csr5_kernel.spmm_chunk(a5, 8)}")
+    if packed_cases < 20:
+        failed.append(f"only {packed_cases} packed K1p/K2p cases")
+
+    # K3 over forced multi-slice builds
+    mixed = sp.csr_matrix(synth.banded(4000, 9)).astype(np.float32)
+    # 257 is not bfloat16-exact, so the slices over rows 3000+ keep float32
+    # planes; at one value in four every tile prefix stays exact in float32
+    mixed.data[mixed.indptr[3000]::4] = 257.0
+    k3_cases = [  # name, matrix, elem_cap, sigma (None: the heuristic), value dtype
+        ("banded4000_bw9", synth.banded(4000, 9), 3000, None, None),
+        ("banded4000_bw27_s16", synth.banded(4000, 27), 3000, 16, None),
+        ("banded4000_bw27_s24", synth.banded(4000, 27), 3000, 24, None),
+        ("banded6000_bw33_s32", synth.banded(6000, 33), 6000, 32, None),
+        ("scatband_s16", synth.scattered_band(3000, 16, 600), 2500, 16, None),
+        ("narrow_empty_slice", _narrow(sp, np), 300, None, None),
+        ("tail_window_past_n", _tail_window(sp, np, synth), 2000, None, None),
+        ("mixed_bf16_f32", mixed, 3000, 16, "auto"),
+    ]
+    for name, a_sp, cap, sig, vdt0 in k3_cases:
+        a = sp.csr_matrix(a_sp).astype(np.float32)
+        x = rng.integers(1, 10, a.shape[1]).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        cfg = None if sig is None else CSR5Config(sigma=sig)
+        for vdt in ((vdt0,) if vdt0 else (torch.float32, torch.bfloat16)):
+            sl = build_csr5_sliced(a, cfg, value_dtype=vdt, elem_cap=cap, device=dev)
+            tag = f"K3 {name}/{vdt if isinstance(vdt, str) else str(vdt).removeprefix('torch.')}"
+            if sl is None or sl.num_slices < 3:
+                failed.append(f"{tag}: not sliced into 3 or more")
+                say(f"[{tag}] FAIL: build gave {None if sl is None else sl.num_slices} slices")
+                continue
+            errs = []
+            for al in (1.0, alpha):
+                y_k = bigslice_kernel.sliced_spmv_cuda(sl, xd, al).cpu()
+                y_p = sliced_spmv_torch(sl, xd, al).cpu()
+                if not _exact(y_k, y_p, torch.from_numpy((al * (a @ x)).astype(np.float32))):
+                    errs.append(f"alpha={al}")
+            packed = sum(s.col_packed is not None for s in sl.slices)
+            dts = sorted({str(s.val_tiles.dtype).removeprefix("torch.") for s in sl.slices})
+            if name == "mixed_bf16_f32" and len(dts) != 2:
+                errs.append("the slices are not of both dtypes")
+            failed += [f"{tag} {e}" for e in errs]
+            say(f"[{tag}] {'PASS' if not errs else 'FAIL ' + ','.join(errs)} shape={a.shape} "
+                f"slices={sl.num_slices} sigma={sl.sigma} packed slices={packed} planes={dts} "
+                f"windows={[(c0, s.n) for c0, s in zip(sl.col_starts, sl.slices)]}")
+
+    # random floats: K1p and K2p sum as K1 and K2 do; K3 as K1 per slice
+    a = sp.csr_matrix(synth.scattered_band(20_000, 20, 4000)).astype(np.float32)
+    a.data = rng.uniform(-1, 1, a.nnz).astype(np.float32)
+    xm = rng.uniform(-1, 1, (a.shape[1], 5)).astype(np.float32)
+    xmd = torch.from_numpy(xm).to(dev)
+    y64 = torch.from_numpy(a.astype(np.float64) @ xm.astype(np.float64))
+    row_abs = torch.from_numpy(abs(a).astype(np.float64) @ np.abs(xm).astype(np.float64))
+    lim = FLOAT_RTOL * row_abs + 1e-30
+    a5 = build_csr5(a, CSR5Config(sigma=16), device=dev)
+    sl = build_csr5_sliced(a, CSR5Config(sigma=16), elem_cap=12_000, device=dev)
+    x0 = xmd[:, 0].contiguous()
+    runs = {
+        "K1p": (csr5_kernel.csr5_spmv_cuda(a5, x0)[:, None], csr5_spmv_packed_torch(a5, x0)[:, None], 1),
+        "K2p": (csr5_kernel.csr5_spmm_cuda(a5, xmd), csr5_spmm_packed_torch(a5, xmd), 5),
+        "K3": (bigslice_kernel.sliced_spmv_cuda(sl, x0)[:, None], sliced_spmv_torch(sl, x0)[:, None], 1),
+    }
+    for k, (y_k, y_p, R) in runs.items():
+        y_k, y_p = y_k.double().cpu(), y_p.double().cpu()
+        ok = bool(((y_k - y_p).abs() <= lim[:, :R]).all() and ((y_k - y64[:, :R]).abs() <= lim[:, :R]).all())
+        ok = ok and a5.col_packed is not None and sl.num_slices >= 3
+        failed += [] if ok else [f"{k} random_floats"]
+        say(f"[{k} random_floats rtol={FLOAT_RTOL} of row |A||x|] {'PASS' if ok else 'FAIL'} "
+            f"bit-equal to plain: {torch.equal(y_k, y_p)} "
+            f"max|k-f64|/rowabs={float(((y_k - y64[:, :R]).abs() / row_abs[:, :R]).max()):.3g}")
+    return failed
+
+
+def _peak_rss_gb() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6  # KiB on Linux
+
+
+def large_path(dev, failed):
+    """The large-matrix path at full width through the CLI's and the API's
+    own code, with every kernel count set to 0 just before and read just
+    after: banded2M on CSR5 (K1); banded20M (20,000,000 rows) sliced (K3)
+    and as one whole-matrix K1 pass (``backend="cuda"``); banded500k at
+    sigma 16 (K1p); fem3block600k autotuned (sigma 16, K1p); ``--spmm 8``
+    at sigma 16 (K2p); the SpMVHandle at banded20M (K3). Returns (results by
+    name, launches, max |kernel - plain| by kernel, the banded20M matrix)."""
+    import numpy as np
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch import SpMVHandle
+    from benchmark_spmv_using_csr5_tpu_torch.bench import cli, harness
+    from benchmark_spmv_using_csr5_tpu_torch.ops import bigslice_kernel, csr5_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops.bigslice import sliced_spmv_torch
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import (
+        csr5_spmm_packed_torch, csr5_spmv_packed_torch, csr5_spmv_torch,
+    )
+    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    args20 = cli.parse_args(["--synthetic", "banded:20000000:27"])
+    rp20, ci20, v20, shape20, name20 = cli.load_matrix(args20)
+    fem = synth.fem_blocks(600_000)
+    say(f"[large path] banded20M {shape20} nnz {len(v20)} and fem3block600k generated in "
+        f"{time.perf_counter() - t0:.1f} s; peak RSS {_peak_rss_gb():.1f} GB")
+    band = ["--synthetic", "banded:500000:27", "--sigma", "16"]
+    runs = [  # name, the kernel it must launch, how
+        ("banded2M", "csr5_spmv", lambda: cli.run(["--synthetic", "banded:2000000:27"])),
+        ("banded20M", "csr5_sliced", lambda: cli.run_matrix(args20, name20, rp20, ci20, v20, shape20)),
+        ("banded20M_whole", "csr5_spmv", lambda: harness.run_benchmark(
+            "banded20M_whole", rp20, ci20, v20, shape20, backend="cuda")),
+        ("banded500k_s16", "csr5_spmv_packed", lambda: cli.run(band)),
+        ("fem3block600k", "csr5_spmv_packed", lambda: cli.run_matrix(
+            cli.parse_args(["--autotune"]), "fem3block600k", fem.indptr, fem.indices, fem.data,
+            fem.shape)),
+        ("spmm8_s16", "csr5_spmm_packed", lambda: cli.run(band + ["--spmm", "8"])),
+    ]
+    spmv_keys = ("csr5_spmv", "csr5_spmv_packed", "csr5_sliced")
+    keys = spmv_keys + ("csr5_spmm", "csr5_spmm_packed")
+    csr5_kernel.launches = csr5_kernel.packed_launches = bigslice_kernel.launches = 0
+    csr5_kernel.spmm_launches = csr5_kernel.spmm_packed_launches = 0
+    results, secs = {}, {}
+    for name, _, go in runs:
+        t0 = time.perf_counter()
+        results[name] = go()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        say(f"[large path] {name}: {secs[name]:.1f} s, peak RSS {_peak_rss_gb():.1f} GB, "
+            f"device memory peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    # the handle at banded20M: inputCSR -> asCSR5 (the row-sliced form) -> spmv
+    t0 = time.perf_counter()
+    h = SpMVHandle(*shape20)
+    h.inputCSR(len(v20), rp20, ci20, v20).asCSR5()
+    xh = np.random.default_rng(11).integers(1, 10, shape20[1]).astype(np.float32)
+    k3_0 = bigslice_kernel.launches
+    yh = h.setX(xh).spmv(-1.75)
+    torch.cuda.synchronize()
+    k3_h = bigslice_kernel.launches - k3_0
+    launches = {
+        "csr5_spmv": csr5_kernel.launches, "csr5_spmv_packed": csr5_kernel.packed_launches,
+        "csr5_sliced": bigslice_kernel.launches, "csr5_spmm": csr5_kernel.spmm_launches,
+        "csr5_spmm_packed": csr5_kernel.spmm_packed_launches,
+    }
+    import scipy.sparse as sp
+
+    a20 = sp.csr_matrix((v20, ci20, rp20), shape=shape20)
+    ok = (h.csr5 is None and h.csr5_sliced is not None and k3_h == 1
+          and torch.equal(yh.cpu(), torch.from_numpy((-1.75 * (a20 @ xh)).astype(np.float32))))
+    nsl = h.csr5_sliced.num_slices if h.csr5_sliced is not None else 0
+    h.asCSR()
+    ok = ok and h.csr5_sliced is None and h.destroy() == 0
+    del h, yh
+    torch.cuda.empty_cache()
+    failed += [] if ok else ["handle banded20M"]
+    say(f"[SpMVHandle banded20M] {'PASS' if ok else 'FAIL'}: inputCSR -> asCSR5 ({nsl} row slices) "
+        f"-> setX -> spmv(-1.75) == scipy with {k3_h} K3 launch, asCSR drops the slices, destroy() "
+        f"= 0; {time.perf_counter() - t0:.1f} s")
+
+    err = {k: 0.0 for k in keys}
+    for name, want, _ in runs:
+        r = results[name]
+        say(r.report())
+        R = r.num_rhs
+        good = (
+            r.check_ok and r.max_rel_err == 0.0
+            and r.backend == ("cuda-sliced" if want == "csr5_sliced" else "cuda")
+            and r.launches[want] > 0 and r.storage == "bfloat16"
+            and tuple(r.y.shape) == ((r.m,) if R == 1 else (r.m, R))
+            and bool(torch.isfinite(r.y).all())
+        )
+        if R == 1:  # the one SpMV kernel that must run, and no other
+            good = good and all(r.launches[k] == 0 for k in spmv_keys if k != want)
+        if name == "fem3block600k":
+            good = good and r.sigma == 16
+        if not good:
+            failed.append(name)
+        # the kernel's y from the run against its plain version, same x
+        x = np.random.default_rng(0).integers(1, 10, (r.n, R) if R > 1 else r.n)
+        xd = torch.from_numpy(x.astype(np.float32)).to(dev)
+        plain = {"csr5_spmv": csr5_spmv_torch, "csr5_spmv_packed": csr5_spmv_packed_torch,
+                 "csr5_sliced": sliced_spmv_torch, "csr5_spmm_packed": csr5_spmm_packed_torch}[want]
+        y_p = plain(r.matrix, xd)
+        e = float((r.y - y_p).abs().max())
+        err[want] = max(err[want], e)
+        exact = torch.equal(r.y, y_p)
+        del y_p
+        say(f"[{name}] launches {dict((k, r.launches[k]) for k in keys)}; kernel y vs plain on the "
+            f"card: max abs err {e} {'PASS' if exact else 'FAIL'}; {secs[name]:.1f} s")
+        if not exact:
+            failed.append(f"{name} vs plain")
+    torch.cuda.empty_cache()
+    say("large-matrix path launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    for k in ("csr5_spmv", "csr5_spmv_packed", "csr5_sliced", "csr5_spmm_packed"):
+        if launches[k] == 0:
+            failed.append(f"no {k} launch on the large-matrix path")
+    return results, launches, err, a20
+
+
+def large_turns(dev, card, kind, res, a20, band500k):
+    """K3 against one whole-matrix K1 pass at banded20M, K1p against K1 on
+    the raw plane of the same banded500k sigma-16 matrix, and K2p against K2
+    at R = 8 there: in turns (kernel, other, other, kernel), each plain
+    version, device times by torch.profiler, the cuSPARSE yardstick
+    (``torch.sparse_csr_tensor @ x``) on the same matrix and x, and each
+    kernel's bound from this run's inputs. Returns name -> (ms, plain ms,
+    bound ms, bound_by, library ms)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch.ops import bigslice_kernel, csr5_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops.bigslice import sliced_spmv_torch
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import (
+        csr5_spmm_packed_torch, csr5_spmv_packed_torch, csr5_spmv_torch,
+    )
+    from benchmark_spmv_using_csr5_tpu_torch.utils import perf
+
+    gbps = perf.device_hbm_gbps(kind)
+    f32 = PEAK_FLOPS["float32"]
+    mm = lambda A, v: A @ v  # noqa: E731
+
+    def turns(fns, order):
+        times = {k: [] for k in fns}
+        for k in order + order[::-1]:
+            fn, mat, x, n = fns[k]
+            times[k].append(perf.benchmark(fn, mat, x, device=dev, warmup=3, num_run=n))
+        return times, {k: sum(v) / len(v) for k, v in times.items()}
+
+    def planes(a5):
+        col = (a5.col_packed, a5.pages) if a5.col_packed is not None else (a5.col_idx_tiles,)
+        return nbytes(*col, a5.val_tiles, a5.win_map, a5.tile_ptr)
+
+    out = {}
+    # --- banded20M: K3 over the slices against one K1 pass ---------------------
+    sl, whole = res["banded20M"].matrix, res["banded20M_whole"].matrix
+    x20 = torch.from_numpy(np.random.default_rng(0).integers(1, 10, sl.n).astype(np.float32)).to(dev)
+    fns = {
+        "k3": (bigslice_kernel.sliced_spmv_cuda, sl, x20, 20),
+        "k1_whole": (csr5_kernel.csr5_spmv_cuda, whole, x20, 20),
+        "k3_plain": (sliced_spmv_torch, sl, x20, 2),
+        "k1_whole_plain": (csr5_spmv_torch, whole, x20, 2),
+    }
+    times, t = turns(fns, ["k3", "k1_whole", "k3_plain", "k1_whole_plain"])
+    dev_us = {
+        "k3": device_us(bigslice_kernel.sliced_spmv_cuda, sl, x20, match="csr5_sliced_kernel", n=20),
+        "k1_whole": device_us(csr5_kernel.csr5_spmv_cuda, whole, x20, match="csr5_spmv_tile_kernel", n=20),
+    }
+    A20 = library_csr(a20, np.float32, dev)
+    lib20 = perf.benchmark(mm, A20, x20, device=dev, warmup=3, num_run=20)
+    lib20_us = device_us_per_call(mm, A20, x20, n=20)
+    del A20
+    torch.cuda.empty_cache()
+    b3 = bound_ms(sum(planes(s) for s in sl.slices) + nbytes(x20) + sl.m * 4, 2 * sl.nnz, gbps, f32)
+    b1 = bound_ms(planes(whole) + nbytes(x20) + whole.m * 4, 2 * whole.nnz, gbps, f32)
+    out["csr5_sliced"] = (t["k3"], t["k3_plain"], *b3, lib20)
+    say(f"[banded20M K3 vs K1, {card}] turns (ms per call, event loop): "
+        + ", ".join(f"{k} {v}" for k, v in times.items()))
+    say(f"[banded20M K3 vs K1] K3 ({sl.num_slices} slices, one launch) {t['k3']:.5f} ms, device "
+        f"{dev_us['k3']} us; whole-matrix K1 {t['k1_whole']:.5f} ms, device {dev_us['k1_whole']} us; "
+        f"K3/K1 = {t['k3'] / t['k1_whole']:.4f}; bound K3 {b3[0] * 1e3:.1f} us ({b3[1]}, "
+        f"{sum(planes(s) for s in sl.slices) / 1e9:.3f} GB planes + x, y), K1 {b1[0] * 1e3:.1f} us "
+        f"({planes(whole) / 1e9:.3f} GB planes + x, y); plain K3 {t['k3_plain']:.3f} ms, plain K1 "
+        f"{t['k1_whole_plain']:.3f} ms; cuSPARSE {lib20:.5f} ms (device {lib20_us} us) [{card}]")
+
+    # --- banded500k at sigma 16: K1p against K1 on the raw plane ---------------
+    a5p = res["banded500k_s16"].matrix
+    a5r = dataclasses.replace(a5p, col_packed=None)
+    x = torch.from_numpy(np.random.default_rng(0).integers(1, 10, a5p.n).astype(np.float32)).to(dev)
+    x8 = torch.from_numpy(np.random.default_rng(0).integers(1, 10, (a5p.n, 8)).astype(np.float32)).to(dev)
+    fns = {
+        "k1p": (csr5_kernel.csr5_spmv_cuda, a5p, x, 100),
+        "k1_raw": (csr5_kernel.csr5_spmv_cuda, a5r, x, 100),
+        "k1p_plain": (csr5_spmv_packed_torch, a5p, x, 10),
+        "k2p": (csr5_kernel.csr5_spmm_cuda, a5p, x8, 100),
+        "k2_raw": (csr5_kernel.csr5_spmm_cuda, a5r, x8, 100),
+        "k2p_plain": (csr5_spmm_packed_torch, a5p, x8, 3),
+    }
+    times, t = turns(fns, ["k1p", "k1_raw", "k1p_plain", "k2p", "k2_raw", "k2p_plain"])
+    dev_us = {
+        "k1p": device_us(csr5_kernel.csr5_spmv_cuda, a5p, x, match="csr5_spmv_packed_kernel"),
+        "k1_raw": device_us(csr5_kernel.csr5_spmv_cuda, a5r, x, match="csr5_spmv_tile_kernel"),
+        "k2p": device_us(csr5_kernel.csr5_spmm_cuda, a5p, x8, match="csr5_spmm_packed_kernel"),
+        "k2_raw": device_us(csr5_kernel.csr5_spmm_cuda, a5r, x8, match="csr5_spmm_tile_kernel"),
+    }
+    A = library_csr(band500k, np.float32, dev)
+    lib1 = perf.benchmark(mm, A, x, device=dev, num_run=100)
+    lib8 = perf.benchmark(mm, A, x8, device=dev, num_run=100)
+    bp = bound_ms(planes(a5p) + nbytes(x) + a5p.m * 4, 2 * a5p.nnz, gbps, f32)
+    br = bound_ms(planes(a5r) + nbytes(x) + a5r.m * 4, 2 * a5r.nnz, gbps, f32)
+    b2p = bound_ms(planes(a5p) + nbytes(x8) + a5p.m * 32, 16 * a5p.nnz, gbps, f32)
+    b2r = bound_ms(planes(a5r) + nbytes(x8) + a5r.m * 32, 16 * a5r.nnz, gbps, f32)
+    out["csr5_spmv_packed"] = (t["k1p"], t["k1p_plain"], *bp, lib1)
+    out["csr5_spmm_packed"] = (t["k2p"], t["k2p_plain"], *b2p, lib8)
+    say(f"[banded500k sigma 16 K1p vs K1, K2p vs K2, {card}] turns (ms per call, event loop): "
+        + ", ".join(f"{k} {v}" for k, v in times.items()))
+    say(f"[banded500k sigma 16] K1p {t['k1p']:.5f} ms (device {dev_us['k1p']} us, bound "
+        f"{bp[0] * 1e3:.2f} us on {planes(a5p) / 1e6:.1f} MB planes) vs K1 on the raw plane "
+        f"{t['k1_raw']:.5f} ms (device {dev_us['k1_raw']} us, bound {br[0] * 1e3:.2f} us on "
+        f"{planes(a5r) / 1e6:.1f} MB); R=8: K2p {t['k2p']:.5f} ms (device {dev_us['k2p']} us, bound "
+        f"{b2p[0] * 1e3:.2f} us) vs K2 {t['k2_raw']:.5f} ms (device {dev_us['k2_raw']} us, bound "
+        f"{b2r[0] * 1e3:.2f} us); plain K1p {t['k1p_plain']:.4f}, K2p {t['k2p_plain']:.4f} ms; "
+        f"cuSPARSE SpMV {lib1:.5f}, SpMM R=8 {lib8:.5f} ms; pmax {a5p.pmax}, tiles {a5p.num_tiles} "
+        f"[{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1051,7 +1476,9 @@ def main() -> int:
 
     from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5
     from benchmark_spmv_using_csr5_tpu_torch.bench import cli
-    from benchmark_spmv_using_csr5_tpu_torch.ops import bandmm_kernel, csr5_f64, csr5_kernel, dia_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops import (
+        bandmm_kernel, bigslice_kernel, csr5_f64, csr5_kernel, dia_kernel,
+    )
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
     from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, perf, synth
 
@@ -1074,6 +1501,7 @@ def main() -> int:
     csr5_kernel._lib_spmm()
     dia_kernel._lib()
     bandmm_kernel._lib()
+    bigslice_kernel._lib()
     say(
         "build: " + ", ".join(f"{k}.cu {cuda_build.build_seconds[k]:.1f} s" for k in SOURCES)
         + f" with nvcc, in parallel (load {time.perf_counter() - t0:.1f} s)"
@@ -1252,16 +1680,46 @@ def main() -> int:
     bounds, (k4_ms, k4_plain_ms) = yardstick(dev, card, kind, df64, f64res["df64_banded500k"].matrix,
                                              mats)
 
+    # --- 13. K1p, K2p and K3 vs plain vs scipy on the odd shapes ---------------
+    failed += large_sweep(dev, rng)
+    if failed:
+        print(f"chip_smoke: K1p/K2p/K3 sweep failed: {failed}", file=sys.stderr)
+        return 1
+
+    # --- 14. the large-matrix path at full width: CLI, harness, handle ---------
+    mats.clear()  # the earlier phases' inputs are no longer needed
+    del fmt, spmm, f64res, df64, results, big
+    torch.cuda.empty_cache()
+    large, large_launches, large_err, a20 = large_path(dev, failed)
+    if failed:
+        print(f"chip_smoke: large-matrix path failed: {failed}", file=sys.stderr)
+        return 1
+
+    # --- 15. K3 vs one K1 pass at banded20M, K1p vs K1 and K2p vs K2 -----------
+    band500k = sp.csr_matrix(synth.banded(500_000, 27)).astype(np.float32)
+    lt = large_turns(dev, card, kind, large, a20, band500k)
+    del large, a20
+
     def entry(name, source, replaces, launches_, err, ms, plain):
         b_ms, b_by, lib_ms = bounds[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
+    def large_entry(name, source, replaces):
+        ms, plain, b_ms, b_by, lib_ms = lt[name]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": large_launches[name], "max_abs_err": large_err[name], "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
     say(json.dumps({"kernels": [
         entry("csr5_spmv", K1_SOURCE, K1_REPLACES,
-              launches + fmt_launches["csr5_spmv"] + f64_launches["csr5_spmv"],
-              max(max_abs, fmt_err["csr5_spmv"]), k_ms, p_ms),
+              launches + fmt_launches["csr5_spmv"] + f64_launches["csr5_spmv"]
+              + large_launches["csr5_spmv"],
+              max(max_abs, fmt_err["csr5_spmv"], large_err["csr5_spmv"]), k_ms, p_ms),
+        large_entry("csr5_spmv_packed", K1_SOURCE, K1P_REPLACES),
+        large_entry("csr5_spmm_packed", K2_SOURCE, K1P_REPLACES),
+        large_entry("csr5_sliced", K3_SOURCE, K3_REPLACES),
         entry("dia_spmv", DIA_SOURCE, K5_REPLACES, fmt_launches["dia_spmv"], fmt_err["dia_spmv"],
               t["k5"], t["k5_plain"]),
         entry("dia_spmm", DIA_SOURCE, K6_REPLACES,
