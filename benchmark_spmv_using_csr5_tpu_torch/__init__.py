@@ -41,6 +41,8 @@ from .models.formats import (
     csr5_from_df64,
     csr5_from_numpy,
     csr5_to_numpy,
+    csr_from_numpy,
+    csr_from_scipy,
     dia_from_numpy,
     dia_to_numpy,
 )
@@ -95,6 +97,8 @@ __all__ = [
     "csr5_from_df64",
     "csr5_from_numpy",
     "csr5_to_numpy",
+    "csr_from_numpy",
+    "csr_from_scipy",
     "SpMVHandle",
     "solvers",
     "build_csr5",

@@ -5,24 +5,72 @@
 // ::_spmv_kernel at R = 2-16, built by _make_pallas_call and called by
 // _csr5_spmm_pallas_jit (csr5_spmm_pallas, layouts "nr" and "rn").
 //
-// What bounds it: at R = 1 the HBM bytes of the column and value planes
-// (6-8 B per nonzero, as K1); as R grows, the gathers of X (4R B per
-// nonzero, mostly from L1/L2 on banded matrices) and the per-rhs prefix
-// arithmetic. The point of SpMM is that the planes are streamed once for
-// all R right-hand sides, so:
+// What bounds it: the HBM bytes of the column and value planes (6-8 B per
+// nonzero, as K1) and of X and Y (4R B per row each). The point of SpMM is
+// that the planes are streamed once for all R right-hand sides: the tile's
+// column and value planes are read once per chunk of up to 16 right-hand
+// sides (RC accumulators per thread, chosen by the wrapper; R > 16 goes in
+// further chunks), and each loaded (col, val) pair is applied to all RC
+// columns of X at once. The first port then sat at a quarter of its bound:
+// every lane gathered its own row X[col, r0:r0+RC] from L1/L2 on every
+// nonzero, and lanes of a warp walk nonzeros sigma apart, so a warp touched
+// about 32 rows of X per load (32R B of X per nonzero, 448 MB per call at
+// banded500k R = 8), and each row's loads waited on the previous row's.
+// The redesign:
 //
-//   * the tile's column and value planes are read ONCE PER CHUNK of up to
-//     16 right-hand sides (RC accumulators per thread, chosen by the
-//     wrapper; R > 16 goes in further chunks), never once per rhs: each
-//     loaded (col, val) pair is applied to all RC columns of X at once;
-//   * a chunk never keeps the whole (sigma, 128, RC) prefix, which would
-//     need sigma * 128 * RC * 4 B of shared memory (205 KB at sigma = 24,
-//     R = 16). The window pass reads the prefix only at the row ends that
-//     win_map names, so once per tile (shared by every chunk) the block
-//     marks those positions in a uint16 plane end_id (sigma * 128 * 2 B)
-//     and numbers them in element order; a thread walking its lane stores
-//     its running sums into wloc[id] (nends * RC floats) only at a row end.
-//     nends <= min(capw, sigma * 128).
+//   - X staged in shared memory ("staged" launches). The matrix carries the
+//     JAX kernel's gather plan: tile t reads X only from the 128-column
+//     pages pages[t, 0:pmax]. Once per tile and chunk the block copies
+//     X[page * 128 : page * 128 + 128, r0 : r0 + RC] for each listed page
+//     into a window of pmax * 128 slots (coalesced: layout "nr" reads each
+//     slot's RC floats as one run, float4 where X allows; "rn" reads RC runs
+//     along n), zero-filling columns >= n (the sentinel page n_pad / 128 and
+//     the contiguous windows clamped at the sentinel reach past n) and the
+//     rhs columns >= rc of a last partial chunk. A nonzero then reads its RC
+//     floats from the window: K2p's code `lane | local_page << 7` is already
+//     its slot (local_page * 128 + lane), and raw K2 on contiguous pages
+//     (pages_contig, banded matrices) takes slot col - pages[t, 0] * 128.
+//     These reads, nnz * RC * 4 B through the shared-memory pipe, bound K2
+//     more than HBM does, so the window's layout is chosen for them: one
+//     plane per rhs column (skew, plane_floats), read one float per lane
+//     and instruction. A warp then needs one wavefront per plane unless two
+//     of its 32 slots fall on one bank; with a float of pad after every 32
+//     slots, a model of the planes of a band 27 wide gives one wavefront at
+//     sigma = 16 and 24, where reading each lane's RC floats as float4s
+//     from one padded slot took 1.7-1.9 per 8 lanes (other bands and
+//     sigmas: 1-2.1). The wrapper chooses staged
+//     or gathered once per launch (ops/csr5_kernel.py::spmm_mode): staged
+//     when the launch is packed or pages_contig and the window fits the
+//     block budget. Raw K2 on a page list ("gathered") has no slot without a
+//     lookup and keeps the __ldg gathers of X, as does any launch whose
+//     window does not fit.
+//   - Groups of kUnroll = 8 rows, one group ahead: a thread holds the
+//     column (or packed word) and value loads of its next 8 rows in flight
+//     while it forms the current 8 rows' products; the first group's loads
+//     go out before the window is staged and the row ends marked, and the
+//     next chunk's first group during this chunk's scan and window pass
+//     (sigma % 16 == 0 for the packed plane, so 8 divides sigma / 2; the raw
+//     plane has a remainder loop). The planes are read with
+//     ld.global.nc.L1::no_allocate (ld_stream), so that streaming them does
+//     not evict the X lines of a gathered launch from L1.
+//   - Registers: __launch_bounds__(128, 6), at most 80 a thread, up to a
+//     chunk of 8; (128, 4) at 16, which spills at 80.
+//   - Row ends only (csr5_rowends.cuh): a chunk never keeps the whole
+//     (sigma, 128, RC) prefix (205 KB at sigma = 24, R = 16). The window
+//     pass reads the prefix only at the row ends win_map names, so once per
+//     tile (shared by every chunk) the block marks them in a per-lane
+//     bitmask and numbers them, and a thread stores its running sums into
+//     wloc[id] only at a row end. wloc (nends slots) and the lane carries
+//     (128 slots) take a padded slot stride (win_stride): neighbouring lanes
+//     store and read neighbouring ids and lanes, which at a stride of RC
+//     floats fell on the same banks; padded, K2 at R = 8 and 16 ran
+//     measurably faster on the H100.
+//   - A row that lies wholly inside the tile (tile_ptr[t] < row <
+//     tile_ptr[t+1]) receives its partial sums by plain stores (float4 in
+//     layout "nr" when R % 4 == 0); only the first and the last row of a
+//     tile, which may straddle a seam, take atomicAdd (Y is zeroed).
+//   - The dynamic shared-memory attribute is set once per process for each
+//     kernel instance (grant_smem), and only above 48 KB.
 //
 // Per tile and chunk, exactly K1's arithmetic for each rhs column:
 //   1. each lane forms its sigma products and keeps the inclusive
@@ -30,61 +78,115 @@
 //   2. the 128 lane totals get an exclusive scan (warp shuffles plus one
 //      combine through shared memory): carry[l][c];
 //   3. for every window slot d < capw, W_end[d] = carry[lane] +
-//      wloc[end_id[sub, lane]] is the tile prefix at the end of the slot's
-//      row, and the row's partial sum is W_end[d] - W_end[d-1] under the
-//      wrapped or aligned rules of ops/csr5_spmv.py::csr5_spmv_torch;
-//   4. the partial sum is added to Y[row, c] with atomicAdd (rows that
-//      straddle tiles get partial sums from several blocks, as in K1).
+//      wloc[end_index(sub, lane)] is the tile prefix at the end of the
+//      slot's row, and the row's partial sum is W_end[d] - W_end[d-1] under
+//      the wrapped or aligned rules of ops/csr5_spmv.py::csr5_spmv_torch;
+//   4. the partial sum goes into Y[row, c].
 // __fmul_rn/__fadd_rn and K1's scan order make column c of Y equal, bit
-// for bit up to the order of the atomics, to K1 on X[:, c]. On integer
-// data every partial sum is exact, so Y equals scipy and the plain version.
+// for bit up to the order of the seam atomics, to K1 on X[:, c], whether X
+// is staged or gathered. On integer data every partial sum is exact, so Y
+// equals scipy and the plain version.
 //
 // X and Y are addressed through strides: X[col, r] at col * xs_c + r * xs_r
-// (layout "nr": X (n, R) row-major, xs_c = R, xs_r = 1, and a thread reads
-// X[col, r0:r0+RC] as one contiguous run, with 16 B loads when R % 4 == 0;
-// layout "rn": X^T (R, n), xs_c = 1, xs_r = n), Y[row, r] at
-// row * ys_row + r * ys_r. Rows >= m get nothing (they hold no nonzeros).
+// (layout "nr": X (n, R) row-major, xs_c = R, xs_r = 1; layout "rn": X^T
+// (R, n), xs_c = 1, xs_r = n), Y[row, r] at row * ys_row + r * ys_r. Rows
+// >= m get nothing (they hold no nonzeros).
 //
 // K2p (csr5_spmm_packed_kernel) is the same kernel streaming the packed
 // column plane col_packed (p, sigma/2, 128) int32, two uint16 codes
 // `lane | local_page << 7` per word (rows s and s + sigma/2), which
 // _csr5_spmm_pallas_jit streams whenever it exists (csr5_kernel.py:870-874):
-// 2 B/nnz of columns instead of 4. Column = pages[local] * 128 + lane,
-// with the tile's page list (pmax <= 512 int32) read through the read-only
-// cache. The prefix must still run in s order, so while a thread walks
-// rows s < sigma/2 it keeps each word's high code in shared memory
-// (sigma/2 * 128 uint16) and decodes it again at row s + sigma/2: each word
-// is read from HBM once per chunk, and Y is bit-equal to K2's.
-//
-// Deferred: staging X rows through shared memory, several tiles per block.
+// 2 B/nnz of columns instead of 4. Gathered, the column is pages[local] *
+// 128 + lane, with the tile's page list (pmax <= 512 int32) read through the
+// read-only cache. The prefix must still run in s order, so while a thread
+// walks rows s < sigma/2 it keeps each word's high code in shared memory
+// (sigma/2 * 128 uint16) and uses it again at row s + sigma/2: each word is
+// read from HBM once per chunk, and Y is bit-equal to K2's.
 
-#include "csr5_tile.cuh"
+#include "csr5_rowends.cuh"
 
 namespace {
 
 using namespace csr5;
 
-// in-tile position sub * 128 + lane of a win_map word (flag bits 23/24 off)
-__device__ __forceinline__ int pos_of(int32_t word) {
-    return (word & kSubMask) * kLanes + ((word >> 16) & kLaneMask);
-}
+constexpr int kUnroll = 8;
+// blocks per SM the register budget is set for (the note above)
+__host__ __device__ constexpr int min_blocks(int rc) { return rc >= 16 ? 4 : 6; }
+
+// floats per slot of wloc and carry: RC, padded at RC >= 8 to an odd
+// number of 16 B units (the wrapper mirrors it:
+// ops/csr5_kernel.py::spmm_window_stride)
+__host__ __device__ constexpr int win_stride(int rc) { return rc >= 8 ? rc + 4 : rc; }
+
+// The window holds one plane of pmax * 128 floats per rhs column, each
+// padded by a float after every 32 slots: slot k of plane c is at
+// c * plane_floats(pmax) + skew(k). A warp reads one plane per instruction,
+// its 32 lanes on 32 banks unless two slots differ by a multiple of 32
+// (after the skew).
+__host__ __device__ constexpr int skew(int k) { return k + (k >> 5); }
+__host__ __device__ constexpr int plane_floats(int pages) { return pages * (kLanes + 4); }
 
 __device__ __forceinline__ float madd(float acc, float v, float x) {
     return __fadd_rn(acc, __fmul_rn(v, x));
 }
 
 // bytes of dynamic shared memory for one block (the wrapper mirrors it:
-// ops/csr5_kernel.py::spmm_smem_bytes); K2p adds its high codes
-size_t smem_bytes(int sigma, int nends, int rc, int packed) {
-    size_t b = ((size_t)nends * rc + (size_t)kLanes * rc + (size_t)kWarps * rc) * sizeof(float) +
-               (size_t)sigma * kLanes * sizeof(uint16_t);
-    if (packed) b += (size_t)(sigma / 2) * kLanes * sizeof(uint16_t);
-    return b;
+// ops/csr5_kernel.py::spmm_smem_bytes): the staged window (win_pages pages,
+// 0 when gathered), the row-end sums, the lane carries and warp totals, the
+// row-end planes, and K2p's high codes
+size_t smem_bytes(int sigma, int nends, int rc, int packed, int win_pages) {
+    return (size_t)plane_floats(win_pages) * rc * sizeof(float) +
+           ((size_t)nends * win_stride(rc) + (size_t)kLanes * win_stride(rc) + (size_t)kWarps * rc) *
+               sizeof(float) +
+           row_end_bytes(sigma) + (packed ? (size_t)(sigma / 2) * kLanes * sizeof(uint16_t) : 0);
+}
+
+// Copies X[page * 128 + l, r0 : r0 + RC] for the pmax pages of the tile into
+// slot j * 128 + l of the window; columns >= n and rhs columns >= rc are 0.
+template <int RC>
+__device__ __forceinline__ void stage_window(float* win, const int32_t* __restrict__ pages_t,
+                                             int pmax, const float* __restrict__ x, int n,
+                                             int r0, int rc, long long xs_c, long long xs_r,
+                                             int vec, int l) {
+    const int wp = plane_floats(pmax);
+    for (int j = 0; j < pmax; ++j) {
+        const int cx = __ldg(pages_t + j) * kLanes + l;
+        float v[RC];
+#pragma unroll
+        for (int c = 0; c < RC; ++c) v[c] = 0.f;
+        if (cx < n) {
+            const float* xr = x + (size_t)cx * xs_c + (size_t)r0 * xs_r;
+            bool done = false;
+            if constexpr (RC >= 4) {
+                if (vec) {
+#pragma unroll
+                    for (int c = 0; c < RC; c += 4) {
+                        if (c < rc) {
+                            const float4 q = __ldg(reinterpret_cast<const float4*>(xr + c));
+                            v[c] = q.x;
+                            v[c + 1] = q.y;
+                            v[c + 2] = q.z;
+                            v[c + 3] = q.w;
+                        }
+                    }
+                    done = true;
+                }
+            }
+            if (!done) {
+#pragma unroll
+                for (int c = 0; c < RC; ++c)
+                    if (c < rc) v[c] = __ldg(xr + (size_t)c * xs_r);
+            }
+        }
+        float* w = win + skew(j * kLanes + l);
+#pragma unroll
+        for (int c = 0; c < RC; ++c) w[c * wp] = v[c];
+    }
 }
 
 // One tile of K2 (PACKED false: col is col_idx_tiles) or K2p (PACKED true:
-// col is col_packed, pages the page lists).
-template <typename V, int RC, bool PACKED>
+// col is col_packed), with X staged in shared memory (STAGED) or gathered.
+template <typename V, int RC, bool PACKED, bool STAGED>
 __device__ __forceinline__ void spmm_tile(const int32_t* __restrict__ col,
                                           const V* __restrict__ val,
                                           const int32_t* __restrict__ win_map,
@@ -93,14 +195,18 @@ __device__ __forceinline__ void spmm_tile(const int32_t* __restrict__ col,
                                           const float* __restrict__ x,
                                           float* __restrict__ y,
                                           int sigma, int capw, int win_rel, int nends, int m,
-                                          int R, long long xs_c, long long xs_r,
+                                          int n, int R, long long xs_c, long long xs_r,
                                           long long ys_row, long long ys_r, int vec) {
-    extern __shared__ float smem[];
-    float* wloc = smem;                                 // (nends, RC)
-    float* carry = wloc + (size_t)nends * RC;           // (128, RC)
-    float* warp_total = carry + kLanes * RC;            // (kWarps, RC)
-    uint16_t* end_id = reinterpret_cast<uint16_t*>(warp_total + kWarps * RC);  // (sigma, 128)
-    uint16_t* hi_code = end_id + (size_t)sigma * kLanes;  // (sigma/2, 128), K2p
+    constexpr int S = win_stride(RC);
+    extern __shared__ __align__(16) float smem[];
+    float* win = smem;                                                // (pmax * 128, S), staged
+    const int wp = plane_floats(pmax);
+    float* wloc = win + (STAGED ? (size_t)RC * wp : 0);              // (nends, S)
+    float* carry = wloc + (size_t)nends * S;                          // (128, S)
+    float* warp_total = carry + kLanes * S;                           // (kWarps, RC)
+    uint32_t* mask = reinterpret_cast<uint32_t*>(warp_total + kWarps * RC);
+    uint16_t* wbase = reinterpret_cast<uint16_t*>(mask + end_words(sigma) * kLanes);
+    uint16_t* hi_code = wbase + end_words(sigma) * kLanes;           // (sigma/2, 128), K2p
     __shared__ int warp_count[kWarps];
 
     const int t = blockIdx.x;
@@ -110,88 +216,148 @@ __device__ __forceinline__ void spmm_tile(const int32_t* __restrict__ col,
     const size_t tile0 = (size_t)t * sigma * kLanes;
     const int h = sigma >> 1;
     const int32_t* wm = win_map + (size_t)t * capw;
-    const int rs = tile_ptr[t];
+    const int rs = __ldg(tile_ptr + t);
+    const int re = __ldg(tile_ptr + t + 1);
     const int a = rs & (kLanes - 1);  // slot of the tile's first row
     const int base = rs - a;          // 128-aligned row of slot 0
-    const int32_t* pages_t = pages + (size_t)t * pmax;  // K2p: the tile's page list
+    const int32_t* pages_t = pages + (size_t)t * pmax;  // the tile's page list
+    // raw staged launches are pages_contig: slot = col - first page * 128
+    const int cbase = STAGED && !PACKED ? __ldg(pages_t) * kLanes : 0;
+    // the lane's column plane: raw columns, or the packed words of rows
+    // s < sigma/2 (row s + sigma/2 takes the high code of word s)
+    const int32_t* cl = col + (PACKED ? tile0 / 2 : tile0) + l;
+    const V* vl = val + tile0 + l;
+    // rows in whole groups of kUnroll (sigma % 16 == 0 when packed)
+    const int full = PACKED ? sigma : sigma - sigma % kUnroll;
 
-    // --- once per tile: mark and number the row ends the slots name -------
-    for (int s = 0; s < sigma; ++s) end_id[s * kLanes + l] = 0;
-    __syncthreads();
-    for (int d = l; d < capw; d += kLanes)
-        if (win_rel || d >= a) end_id[pos_of(wm[d])] = 1;  // aligned: slots < a unused
-    __syncthreads();
-    int cnt = 0;
-    for (int s = 0; s < sigma; ++s) cnt += end_id[s * kLanes + l];
-    int inc_c = cnt;
+    // the plane loads of rows s .. s + kUnroll - 1 of this lane: the column
+    // or packed word (none for the packed rows >= sigma/2) and the value
+    auto load = [&](int s, int32_t (&k)[kUnroll], float (&v)[kUnroll]) {
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, inc_c, o);
-        if (wl >= o) inc_c += v;
-    }
-    if (wl == 31) warp_count[warp] = inc_c;
-    __syncthreads();
-    int id = inc_c - cnt;
-    for (int w = 0; w < warp; ++w) id += warp_count[w];
-    // lane-major element order; a thread rewrites only its own lane
-    for (int s = 0; s < sigma; ++s)
-        if (end_id[s * kLanes + l]) end_id[s * kLanes + l] = (uint16_t)(++id);  // 1 + id
-    __syncthreads();
+        for (int u = 0; u < kUnroll; ++u) {
+            if (!PACKED || s < h) k[u] = ld_stream(cl + (s + u) * kLanes);
+            v[u] = to_f32(ld_stream(vl + (s + u) * kLanes));
+        }
+    };
+    // the first group's loads go out before the window is staged and the
+    // row ends are marked, so that their latency overlaps both
+    int32_t k0[kUnroll];
+    float v0[kUnroll];
+    if (full > 0) load(0, k0, v0);
+
+    // --- once per tile: the first chunk's window and the row ends ---------
+    if constexpr (STAGED)
+        stage_window<RC>(win, pages_t, pmax, x, n, 0, R < RC ? R : RC, xs_c, xs_r, vec, l);
+    const int first = mark_row_ends(wm, capw, a, win_rel, sigma, mask, wbase, warp_count, l);
 
     for (int r0 = 0; r0 < R; r0 += RC) {
         const int rc = R - r0 < RC ? R - r0 : RC;
+        if constexpr (STAGED) {
+            if (r0 > 0) {
+                stage_window<RC>(win, pages_t, pmax, x, n, r0, rc, xs_c, xs_r, vec, l);
+                __syncthreads();
+            }
+        }
 
         // 1. products and within-lane prefixes; the (col, val) pair is
         // loaded once for the RC right-hand sides of the chunk
         float run[RC];
 #pragma unroll
         for (int c = 0; c < RC; ++c) run[c] = 0.f;
-        // row s of the tile with column cidx: RC products, the running sums,
-        // stored where a row ends
-        auto step = [&](int s, int cidx) {
-            const size_t e = tile0 + (size_t)s * kLanes + l;
-            const float v = to_f32(val[e]);
-            const float* xr = x + (size_t)cidx * xs_c + (size_t)r0 * xs_r;
-            bool done = false;
-            if constexpr (RC >= 4) {
-                if (vec) {
+        int id = first;
+        // one row with value v and key k (the window slot when staged, else
+        // the column): RC products and running sums, stored at a row end
+        auto step = [&](float v, int k, bool end) {
+            float xv[RC];
+            if constexpr (STAGED) {
+                const float* xs = win + skew(k);
 #pragma unroll
-                    for (int c = 0; c < RC; c += 4) {
-                        if (c < rc) {
-                            const float4 xv = __ldg(reinterpret_cast<const float4*>(xr + c));
-                            run[c] = madd(run[c], v, xv.x);
-                            run[c + 1] = madd(run[c + 1], v, xv.y);
-                            run[c + 2] = madd(run[c + 2], v, xv.z);
-                            run[c + 3] = madd(run[c + 3], v, xv.w);
+                for (int c = 0; c < RC; ++c) xv[c] = xs[c * wp];
+            } else {
+                const float* xr = x + (size_t)k * xs_c + (size_t)r0 * xs_r;
+#pragma unroll
+                for (int c = 0; c < RC; ++c) xv[c] = 0.f;
+                bool done = false;
+                if constexpr (RC >= 4) {
+                    if (vec) {
+#pragma unroll
+                        for (int c = 0; c < RC; c += 4) {
+                            if (c < rc) {
+                                const float4 q = __ldg(reinterpret_cast<const float4*>(xr + c));
+                                xv[c] = q.x;
+                                xv[c + 1] = q.y;
+                                xv[c + 2] = q.z;
+                                xv[c + 3] = q.w;
+                            }
                         }
+                        done = true;
                     }
-                    done = true;
+                }
+                if (!done) {
+#pragma unroll
+                    for (int c = 0; c < RC; ++c)
+                        if (c < rc) xv[c] = __ldg(xr + (size_t)c * xs_r);
                 }
             }
-            if (!done) {
 #pragma unroll
-                for (int c = 0; c < RC; ++c)
-                    if (c < rc) run[c] = madd(run[c], v, __ldg(xr + (size_t)c * xs_r));
-            }
-            const int eid = end_id[s * kLanes + l];
-            if (eid) {
-                float* w = wloc + (size_t)(eid - 1) * RC;
+            for (int c = 0; c < RC; ++c) run[c] = madd(run[c], v, xv[c]);
+            if (end) {
+                float* w = wloc + (size_t)id * S;
+                if constexpr (RC >= 4) {
 #pragma unroll
-                for (int c = 0; c < RC; ++c) w[c] = run[c];
+                    for (int c = 0; c < RC; c += 4)
+                        *reinterpret_cast<float4*>(w + c) =
+                            make_float4(run[c], run[c + 1], run[c + 2], run[c + 3]);
+                } else {
+#pragma unroll
+                    for (int c = 0; c < RC; ++c) w[c] = run[c];
+                }
+                ++id;
             }
         };
-        if constexpr (PACKED) {
-            // rows s < sigma/2 take the low code of word s now and keep its
-            // high code for row s + sigma/2 (the same thread reads it back)
-            for (int s = 0; s < h; ++s) {
-                const uint32_t w = (uint32_t)__ldg(col + tile0 / 2 + (size_t)s * kLanes + l);
-                hi_code[s * kLanes + l] = (uint16_t)(w >> 16);
-                step(s, decode(w & 0xFFFFu, pages_t));
+        // groups of kUnroll rows: the next group's plane loads are in flight
+        // while this group's products are formed
+        for (int s = 0; s < full; s += kUnroll) {
+            int32_t k1[kUnroll];
+            float v1[kUnroll];
+            const bool more = s + kUnroll < full;
+            if (more) load(s + kUnroll, k1, v1);
+            // s is a multiple of 8: the group's rows share one mask word
+            const uint32_t ends = mask[(s >> 5) * kLanes + l] >> (s & 31);
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                int key;
+                if constexpr (PACKED) {
+                    // rows s < sigma/2 take the low code of word s now and
+                    // keep its high code for row s + sigma/2 (the same
+                    // thread reads it back)
+                    uint32_t code;
+                    if (s < h) {
+                        code = (uint32_t)k0[u] & 0xFFFFu;
+                        hi_code[(s + u) * kLanes + l] = (uint16_t)((uint32_t)k0[u] >> 16);
+                    } else {
+                        code = hi_code[(s - h + u) * kLanes + l];
+                    }
+                    key = STAGED ? (int)code : decode(code, pages_t);
+                } else {
+                    key = k0[u] - cbase;
+                }
+                step(v0[u], key, (ends >> u) & 1u);
             }
-            for (int s = h; s < sigma; ++s) step(s, decode(hi_code[(s - h) * kLanes + l], pages_t));
-        } else {
-            for (int s = 0; s < sigma; ++s) step(s, col[tile0 + (size_t)s * kLanes + l]);
+            if (more) {
+#pragma unroll
+                for (int u = 0; u < kUnroll; ++u) {
+                    k0[u] = k1[u];
+                    v0[u] = v1[u];
+                }
+            }
         }
+        for (int s = full; s < sigma; ++s)  // raw plane: sigma % kUnroll rows
+            step(to_f32(ld_stream(vl + s * kLanes)), ld_stream(cl + s * kLanes) - cbase,
+                 is_end(mask, s, l));
+        // the next chunk's first group, in flight during the scan and the
+        // window pass
+        if (r0 + RC < R && full > 0) load(0, k0, v0);
 
         // 2. exclusive scan of the lane totals, per rhs (K1's order)
         float inc[RC];
@@ -210,7 +376,7 @@ __device__ __forceinline__ void spmm_tile(const int32_t* __restrict__ col,
         for (int c = 0; c < RC; ++c) {
             float before = 0.f;
             for (int w = 0; w < warp; ++w) before += warp_total[w * RC + c];
-            carry[l * RC + c] = before + (inc[c] - run[c]);
+            carry[l * S + c] = before + (inc[c] - run[c]);
         }
         __syncthreads();
 
@@ -221,38 +387,58 @@ __device__ __forceinline__ void spmm_tile(const int32_t* __restrict__ col,
                 // wrapped maps: slot d is row base+d for d >= a and row
                 // base+capw+d for d < a; the wrap seam (slot capw-1 -> slot
                 // 0) is consecutive rows, and only the first row starts at 0
-                if (d != a) wprev = wm[d == 0 ? capw - 1 : d - 1];
-                wcur = wm[d];
+                if (d != a) wprev = __ldg(wm + (d == 0 ? capw - 1 : d - 1));
+                wcur = __ldg(wm + d);
                 row = base + d + (d < a ? capw : 0);
             } else {
                 // aligned maps: slots before the tile's first row are masked
                 if (d < a) continue;
-                if (d - 1 >= a) wprev = wm[d - 1];
-                wcur = wm[d];
+                if (d - 1 >= a) wprev = __ldg(wm + d - 1);
+                wcur = __ldg(wm + d);
                 row = base + d;
             }
             if (row >= m) continue;
-            const int pc = pos_of(wcur);
-            const float* wc = wloc + (size_t)(end_id[pc] - 1) * RC;
-            const float* cc = carry + (pc & kLaneMask) * RC;
+            const float* wc = wloc + (size_t)end_index(wcur, mask, wbase) * S;
+            const float* cc = carry + lane_of(wcur) * S;
             const float* wp = nullptr;
             const float* cp = nullptr;
             if (wprev >= 0) {
-                const int pp = pos_of(wprev);
-                wp = wloc + (size_t)(end_id[pp] - 1) * RC;
-                cp = carry + (pp & kLaneMask) * RC;
+                wp = wloc + (size_t)end_index(wprev, mask, wbase) * S;
+                cp = carry + lane_of(wprev) * S;
             }
-            float* yr = y + (size_t)row * ys_row + (size_t)r0 * ys_r;
+            float w2[RC];
 #pragma unroll
             for (int c = 0; c < RC; ++c) {
-                if (c < rc) {
-                    const float prev = wp ? cp[c] + wp[c] : 0.f;
-                    const float w2 = (cc[c] + wc[c]) - prev;
-                    if (w2 != 0.f) atomicAdd(yr + (size_t)c * ys_r, w2);
+                const float prev = wp ? cp[c] + wp[c] : 0.f;
+                w2[c] = (cc[c] + wc[c]) - prev;
+            }
+            float* yr = y + (size_t)row * ys_row + (size_t)r0 * ys_r;
+            if (row > rs && row < re) {
+                // the row's only partial sums: plain stores (a difference
+                // of equal prefixes is +0, so storing a zero changes nothing)
+                bool done = false;
+                if constexpr (RC >= 4) {
+                    if (vec) {
+#pragma unroll
+                        for (int c = 0; c < RC; c += 4)
+                            if (c < rc)
+                                *reinterpret_cast<float4*>(yr + c) =
+                                    make_float4(w2[c], w2[c + 1], w2[c + 2], w2[c + 3]);
+                        done = true;
+                    }
                 }
+                if (!done) {
+#pragma unroll
+                    for (int c = 0; c < RC; ++c)
+                        if (c < rc && w2[c] != 0.f) yr[(size_t)c * ys_r] = w2[c];
+                }
+            } else {
+#pragma unroll
+                for (int c = 0; c < RC; ++c)
+                    if (c < rc && w2[c] != 0.f) atomicAdd(yr + (size_t)c * ys_r, w2[c]);
             }
         }
-        __syncthreads();  // the next chunk rewrites wloc, carry, warp_total
+        __syncthreads();  // the next chunk rewrites the window, wloc, carry, warp_total
     }
 }
 
@@ -260,51 +446,67 @@ __device__ __forceinline__ void spmm_tile(const int32_t* __restrict__ col,
     const int32_t *__restrict__ col, const V *__restrict__ val,                            \
         const int32_t *__restrict__ win_map, const int32_t *__restrict__ tile_ptr,         \
         const int32_t *__restrict__ pages, int pmax, const float *__restrict__ x,          \
-        float *__restrict__ y, int sigma, int capw, int win_rel, int nends, int m, int R, \
-        long long xs_c, long long xs_r, long long ys_row, long long ys_r, int vec
+        float *__restrict__ y, int sigma, int capw, int win_rel, int nends, int m, int n,  \
+        int R, long long xs_c, long long xs_r, long long ys_row, long long ys_r, int vec
 #define K2_ARGS \
-    col, val, win_map, tile_ptr, pages, pmax, x, y, sigma, capw, win_rel, nends, m, R, xs_c, \
+    col, val, win_map, tile_ptr, pages, pmax, x, y, sigma, capw, win_rel, nends, m, n, R, xs_c, \
         xs_r, ys_row, ys_r, vec
 
-template <typename V, int RC>
-__global__ void __launch_bounds__(kLanes) csr5_spmm_tile_kernel(K2_PARAMS) {
-    spmm_tile<V, RC, false>(K2_ARGS);
+template <typename V, int RC, bool STAGED>
+__global__ void __launch_bounds__(kLanes, min_blocks(RC)) csr5_spmm_tile_kernel(K2_PARAMS) {
+    spmm_tile<V, RC, false, STAGED>(K2_ARGS);
 }
 
-template <typename V, int RC>
-__global__ void __launch_bounds__(kLanes) csr5_spmm_packed_kernel(K2_PARAMS) {
-    spmm_tile<V, RC, true>(K2_ARGS);
+template <typename V, int RC, bool STAGED>
+__global__ void __launch_bounds__(kLanes, min_blocks(RC)) csr5_spmm_packed_kernel(K2_PARAMS) {
+    spmm_tile<V, RC, true, STAGED>(K2_ARGS);
 }
 
-template <typename V, int RC>
-int launch_rc(const void* col, const void* val, const void* win_map,
-              const void* tile_ptr, const void* pages, int pmax, int packed, const void* x,
-              void* y, int p, int sigma, int capw, int win_rel, int nends, int m, int R,
-              long long xs_c, long long xs_r, long long ys_row, long long ys_r, int vec,
-              cudaStream_t stream) {
-    const size_t smem = smem_bytes(sigma, nends, RC, packed);
-    auto kernel = packed ? &csr5_spmm_packed_kernel<V, RC> : &csr5_spmm_tile_kernel<V, RC>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <auto Kernel, typename V>
+int launch_kernel(const void* col, const void* val, const void* win_map, const void* tile_ptr,
+                  const void* pages, int pmax, const void* x, void* y, int p, int sigma,
+                  int capw, int win_rel, int nends, int m, int n, int R, long long xs_c,
+                  long long xs_r, long long ys_row, long long ys_r, int vec, size_t smem,
+                  cudaStream_t stream) {
+    cudaError_t err = grant_smem<Kernel>(smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<p, kLanes, smem, stream>>>(
+    Kernel<<<p, kLanes, smem, stream>>>(
         (const int32_t*)col, (const V*)val, (const int32_t*)win_map, (const int32_t*)tile_ptr,
         (const int32_t*)pages, pmax, (const float*)x, (float*)y, sigma, capw, win_rel, nends,
-        m, R, xs_c, xs_r, ys_row, ys_r, vec);
+        m, n, R, xs_c, xs_r, ys_row, ys_r, vec);
     return (int)cudaGetLastError();
+}
+
+template <typename V, int RC>
+int launch_rc(const void* col, const void* val, const void* win_map, const void* tile_ptr,
+              const void* pages, int pmax, int packed, int staged, const void* x, void* y,
+              int p, int sigma, int capw, int win_rel, int nends, int m, int n, int R,
+              long long xs_c, long long xs_r, long long ys_row, long long ys_r, int vec,
+              cudaStream_t stream) {
+    const size_t smem = smem_bytes(sigma, nends, RC, packed, staged ? pmax : 0);
+#define K2_LAUNCH_ARGS                                                                        \
+    col, val, win_map, tile_ptr, pages, pmax, x, y, p, sigma, capw, win_rel, nends, m, n, R, \
+        xs_c, xs_r, ys_row, ys_r, vec, smem, stream
+    if (packed) {
+        if (staged) return launch_kernel<&csr5_spmm_packed_kernel<V, RC, true>, V>(K2_LAUNCH_ARGS);
+        return launch_kernel<&csr5_spmm_packed_kernel<V, RC, false>, V>(K2_LAUNCH_ARGS);
+    }
+    if (staged) return launch_kernel<&csr5_spmm_tile_kernel<V, RC, true>, V>(K2_LAUNCH_ARGS);
+    return launch_kernel<&csr5_spmm_tile_kernel<V, RC, false>, V>(K2_LAUNCH_ARGS);
+#undef K2_LAUNCH_ARGS
 }
 
 template <typename V>
 int launch(const void* col, const void* val, const void* win_map, const void* tile_ptr,
-           const void* pages, int pmax, int packed, const void* x, void* y, int p, int sigma,
-           int capw, int win_rel, int nends, int m, int R, long long xs_c, long long xs_r,
-           long long ys_row, long long ys_r, int rc, int vec, void* stream) {
+           const void* pages, int pmax, int packed, int staged, const void* x, void* y, int p,
+           int sigma, int capw, int win_rel, int nends, int m, int n, int R, long long xs_c,
+           long long xs_r, long long ys_row, long long ys_r, int rc, int vec, void* stream) {
     if (p <= 0 || R <= 0) return 0;
     const cudaStream_t s = (cudaStream_t)stream;
-#define K2_AT(RCV)                                                                          \
-    return launch_rc<V, RCV>(col, val, win_map, tile_ptr, pages, pmax, packed, x, y, p,    \
-                             sigma, capw, win_rel, nends, m, R, xs_c, xs_r, ys_row, ys_r, \
-                             vec, s)
+#define K2_AT(RCV)                                                                           \
+    return launch_rc<V, RCV>(col, val, win_map, tile_ptr, pages, pmax, packed, staged, x, y, \
+                             p, sigma, capw, win_rel, nends, m, n, R, xs_c, xs_r, ys_row,    \
+                             ys_r, vec, s)
     switch (rc) {
         case 1: K2_AT(1);
         case 2: K2_AT(2);
@@ -321,29 +523,32 @@ int launch(const void* col, const void* val, const void* win_map, const void* ti
 extern "C" {
 
 // Y (float32, zeroed by the caller) += A @ X for a CSR5 matrix with float32
-// values, in chunks of rc in {1, 2, 4, 8, 16} right-hand sides. vec: X rows
-// are read with 16 B loads (xs_r == 1, R % 4 == 0, X 16 B aligned). packed:
-// col is col_packed and pages the (p, pmax) page lists (K2p); else col is
-// col_idx_tiles and pages is unused (K2). Returns the CUDA error code of the
-// launch (0 on success).
+// values, in chunks of rc in {1, 2, 4, 8, 16} right-hand sides. vec: rows
+// of X and Y are 16 B aligned runs (layout "nr", R % 4 == 0, X 16 B
+// aligned). packed: col is col_packed (K2p); else col is col_idx_tiles
+// (K2). staged: X is staged in shared memory through the (p, pmax) page
+// lists `pages` (packed, or pages_contig); else X is gathered, and pages is
+// read only when packed. Returns the CUDA error code of the launch (0 on
+// success).
 int csr5_spmm_f32(const void* col, const void* val, const void* win_map,
-                  const void* tile_ptr, const void* pages, int pmax, int packed,
+                  const void* tile_ptr, const void* pages, int pmax, int packed, int staged,
                   const void* x, void* y, int p, int sigma, int capw, int win_rel, int nends,
-                  int m, int R, long long xs_c, long long xs_r, long long ys_row,
+                  int m, int n, int R, long long xs_c, long long xs_r, long long ys_row,
                   long long ys_r, int rc, int vec, void* stream) {
-    return launch<float>(col, val, win_map, tile_ptr, pages, pmax, packed, x, y, p, sigma, capw,
-                         win_rel, nends, m, R, xs_c, xs_r, ys_row, ys_r, rc, vec, stream);
+    return launch<float>(col, val, win_map, tile_ptr, pages, pmax, packed, staged, x, y, p,
+                         sigma, capw, win_rel, nends, m, n, R, xs_c, xs_r, ys_row, ys_r, rc,
+                         vec, stream);
 }
 
 // The same with bfloat16 values (products and sums stay float32).
 int csr5_spmm_bf16(const void* col, const void* val, const void* win_map,
-                   const void* tile_ptr, const void* pages, int pmax, int packed,
+                   const void* tile_ptr, const void* pages, int pmax, int packed, int staged,
                    const void* x, void* y, int p, int sigma, int capw, int win_rel, int nends,
-                   int m, int R, long long xs_c, long long xs_r, long long ys_row,
+                   int m, int n, int R, long long xs_c, long long xs_r, long long ys_row,
                    long long ys_r, int rc, int vec, void* stream) {
-    return launch<__nv_bfloat16>(col, val, win_map, tile_ptr, pages, pmax, packed, x, y, p,
-                                 sigma, capw, win_rel, nends, m, R, xs_c, xs_r, ys_row, ys_r,
-                                 rc, vec, stream);
+    return launch<__nv_bfloat16>(col, val, win_map, tile_ptr, pages, pmax, packed, staged, x,
+                                 y, p, sigma, capw, win_rel, nends, m, n, R, xs_c, xs_r,
+                                 ys_row, ys_r, rc, vec, stream);
 }
 
 const char* csr5_spmm_error_string(int code) {

@@ -11,73 +11,158 @@
 // float64 value plane with plain fp64 arithmetic (2^-53), and none of the
 // double-single machinery is carried over.
 //
-// It is K1 (csr5_spmv.cu) on doubles. What changes with the width:
-//   - the within-lane prefix in shared memory is (sigma + 1) * 128 * 8 B
-//     (25.6 KB at sigma = 24), so sigma is limited to 224 (a block has at
-//     most 227 KB), half of K1's limit;
-//   - the lane-total scan shuffles doubles (__shfl_up_sync moves the two
-//     32-bit halves);
-//   - rows that straddle tiles go through the native 8 B atomicAdd(double*).
-//
 // What bounds it: HBM bytes. Every nonzero is streamed once, as a 4 B int32
 // column and an 8 B float64 value (12 B/nnz, twice K1's 6 B with bfloat16
 // values), plus 8 B x gathers through the read-only cache. Two flops per
-// 12 B: the H100's fp64 rate is nowhere near the limit.
+// 12 B: the H100's fp64 rate is nowhere near the limit. To stream at the
+// HBM rate a block must keep many loads in flight and the gathers must hit
+// L1, so the design is:
 //
-// Per tile, as in K1:
-//   1. each lane forms its sigma products and keeps their inclusive
-//      within-lane prefix in shared memory;
+//   - Row ends only (csr5_rowends.cuh). The first port kept the whole
+//     inclusive within-lane prefix in shared memory, (sigma + 1) * 128 * 8 B
+//     (25.6 KB at sigma = 24), which held an SM to 8 blocks. The window
+//     pass reads the prefix only where win_map names a row end, so the
+//     block marks those positions in a per-lane bitmask, numbers them, and a
+//     thread stores its running sum only there: nends * 8 B with nends <=
+//     min(capw, sigma * 128), plus the lane carries and the 768 B of row-end
+//     planes (2.8 KB at df64_banded500k, where capw = 128). Registers, not
+//     shared memory, now set the blocks per SM: __launch_bounds__(128, 6)
+//     gives a thread 80, which the loads in flight below take without a
+//     spill.
+//   - Groups of kUnroll = 8 rows, one group ahead: a thread holds the
+//     column and value loads of its next 8 rows in flight while it gathers
+//     x for the current 8 and adds them, and the first group's loads go
+//     out before the row-end marking, whose win_map reads and barriers they
+//     overlap (sigma % 8 rows take a remainder loop). The first port waited
+//     on each row's load before the next. Two groups ahead (more registers,
+//     fewer blocks) and several tiles per block (the next tile's first loads
+//     in flight during this tile's window pass) were tried and were slower
+//     on the H100; one tile per block and one group ahead were kept.
+//   - The planes are read with ld.global.nc.L1::no_allocate (ld_stream):
+//     read once, they no longer evict from L1 the x lines that the gathers
+//     of neighbouring lanes and tiles reuse. This moved K4 more than any
+//     other change here.
+//   - A row that lies wholly inside the tile (tile_ptr[t] < row <
+//     tile_ptr[t+1]) receives its one partial sum by a plain store; only the
+//     first and the last row of a tile, which may straddle a seam, take
+//     atomicAdd (y is zeroed, so 0 + w2 == w2 bit for bit).
+//   - The dynamic shared-memory attribute is set once per process
+//     (grant_smem), and only for launches above 48 KB.
+//
+// Per tile:
+//   0. mark and number the row ends the window slots name;
+//   1. each lane forms its sigma products and their inclusive running sum,
+//      stored at its row ends;
 //   2. the 128 lane totals get an exclusive scan: carry[l];
 //   3. for every window slot d < capw, win_map[t, d] names the in-tile
 //      position of the last element of the slot's row, so W_end[d] =
 //      carry[lane] + prefix[sub][lane], and the row's partial sum is
 //      W_end[d] - W_end[d-1] under the wrapped or aligned rules of
 //      ops/csr5_spmv.py::csr5_spmv_torch;
-//   4. the partial sum is added to y[row] with atomicAdd.
+//   4. the partial sum is stored into y[row], or added with atomicAdd where
+//      the row may straddle.
 //
 // Rounding: __dmul_rn/__dadd_rn keep every product rounded on its own (no
-// fused multiply-add), as the plain version computes it. The tile prefix
-// is summed in another association than the plain version's cumsum, and
-// the atomics at tile seams add in an order that changes from run to run,
-// so on non-integer data y differs from the plain version in the last
-// bits, within the classical bound of a prefix-difference method: a few
-// units of 2^-53 times the mass of the row's tiles. On integer-valued data
-// every partial sum is an integer below 2^53 and y is exact.
+// fused multiply-add), as the plain version computes it, and the prefix and
+// the scan run in the first port's order, so y is bit-equal to it up to the
+// order of the seam atomics. The tile prefix is summed in another
+// association than the plain version's cumsum, and the atomics at tile
+// seams add in an order that changes from run to run, so on non-integer
+// data y differs from the plain version in the last bits, within the
+// classical bound of a prefix-difference method: a few units of 2^-53 times
+// the mass of the row's tiles. On integer-valued data every partial sum is
+// an integer below 2^53 and y is exact.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "csr5_rowends.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kWarps = kLanes / 32;
-// bits 0-15 of a win_map word: the sub-row; bits 16-22: the lane
-constexpr int kSubMask = 0xFFFF;
-constexpr int kLaneMask = kLanes - 1;
+using namespace csr5;
 
-__global__ void __launch_bounds__(kLanes)
+constexpr int kUnroll = 8;
+
+// bytes of dynamic shared memory for one block (the wrapper mirrors it:
+// ops/csr5_f64.py::f64_smem_bytes)
+size_t smem_bytes(int sigma, int nends) {
+    return (size_t)nends * sizeof(double) + (size_t)kLanes * sizeof(double) +
+           row_end_bytes(sigma);
+}
+
+__global__ void __launch_bounds__(kLanes, 6)
 csr5_spmv_f64_tile_kernel(const int32_t* __restrict__ col,
                           const double* __restrict__ val,
                           const int32_t* __restrict__ win_map,
                           const int32_t* __restrict__ tile_ptr,
                           const double* __restrict__ x,
                           double* __restrict__ y,
-                          int sigma, int capw, int win_rel) {
-    extern __shared__ double smem[];
-    double* prefix = smem;                  // (sigma, 128) within-lane prefixes
-    double* carry = smem + sigma * kLanes;  // (128,) exclusive lane carries
+                          int sigma, int capw, int win_rel, int nends) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    double* wloc = reinterpret_cast<double*>(smem_raw);  // (nends,) prefixes at row ends
+    double* carry = wloc + nends;                        // (128,) exclusive lane carries
+    uint32_t* mask = reinterpret_cast<uint32_t*>(carry + kLanes);
+    uint16_t* wbase = reinterpret_cast<uint16_t*>(mask + end_words(sigma) * kLanes);
     __shared__ double warp_total[kWarps];
+    __shared__ int warp_count[kWarps];
 
     const int t = blockIdx.x;
     const int l = threadIdx.x;
     const size_t tile0 = (size_t)t * sigma * kLanes;
+    const int rs = __ldg(tile_ptr + t);
+    const int re = __ldg(tile_ptr + t + 1);
+    const int a = rs & (kLanes - 1);  // slot of the tile's first row
+    const int base = rs - a;          // 128-aligned row of slot 0
+    const int32_t* wm = win_map + (size_t)t * capw;
 
-    // 1. products and the inclusive within-lane prefix
+    const int32_t* cl = col + tile0 + l;
+    const double* vl = val + tile0 + l;
+    const int full = sigma - sigma % kUnroll;  // rows in whole groups
+    // the plane loads of rows s .. s + kUnroll - 1 of this lane
+    auto load = [&](int s, int (&c)[kUnroll], double (&v)[kUnroll]) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            c[u] = ld_stream(cl + (s + u) * kLanes);
+            v[u] = ld_stream(vl + (s + u) * kLanes);
+        }
+    };
+    // the first group's loads go out before the row ends are marked, so
+    // their latency overlaps the win_map reads and the barriers
+    int c0[kUnroll];
+    double v0[kUnroll];
+    if (full > 0) load(0, c0, v0);
+
+    // 0. the row ends; id numbers this lane's, in s order
+    int id = mark_row_ends(wm, capw, a, win_rel, sigma, mask, wbase, warp_count, l);
+
+    // 1. products and the inclusive within-lane running sum, kept at row
+    // ends; in groups of kUnroll rows, whose x gathers go out together and
+    // whose next group's plane loads are in flight during the adds
     double run = 0.0;
-    for (int s = 0; s < sigma; ++s) {
-        const size_t e = tile0 + (size_t)s * kLanes + l;
-        run = __dadd_rn(run, __dmul_rn(val[e], __ldg(x + col[e])));
-        prefix[s * kLanes + l] = run;
+    for (int s = 0; s < full; s += kUnroll) {
+        double xv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) xv[u] = __ldg(x + c0[u]);
+        int c1[kUnroll];
+        double v1[kUnroll];
+        const bool more = s + kUnroll < full;
+        if (more) load(s + kUnroll, c1, v1);
+        // s is a multiple of 8, so the group's rows share one mask word
+        const uint32_t ends = mask[(s >> 5) * kLanes + l] >> (s & 31);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            run = __dadd_rn(run, __dmul_rn(v0[u], xv[u]));
+            if ((ends >> u) & 1u) wloc[id++] = run;
+        }
+        if (more) {
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                c0[u] = c1[u];
+                v0[u] = v1[u];
+            }
+        }
+    }
+    for (int s = full; s < sigma; ++s) {
+        run = __dadd_rn(run, __dmul_rn(ld_stream(vl + s * kLanes), __ldg(x + ld_stream(cl + s * kLanes))));
+        if (is_end(mask, s, l)) wloc[id++] = run;
     }
 
     // 2. exclusive scan of the lane totals
@@ -97,14 +182,8 @@ csr5_spmv_f64_tile_kernel(const int32_t* __restrict__ col,
     __syncthreads();
 
     // 3-4. window slots: row-end prefixes, their differences, y
-    const int rs = tile_ptr[t];
-    const int a = rs & (kLanes - 1);  // slot of the tile's first row
-    const int base = rs - a;          // 128-aligned row of slot 0
-    const int32_t* wm = win_map + (size_t)t * capw;
     auto w_end = [&](int32_t word) {
-        const int sub = word & kSubMask;
-        const int lane = (word >> 16) & kLaneMask;  // bits 23/24 are flags
-        return __dadd_rn(carry[lane], prefix[sub * kLanes + lane]);
+        return __dadd_rn(carry[lane_of(word)], wloc[end_index(word, mask, wbase)]);
     };
     for (int d = l; d < capw; d += kLanes) {
         double w2;
@@ -112,17 +191,22 @@ csr5_spmv_f64_tile_kernel(const int32_t* __restrict__ col,
         if (win_rel) {
             // wrapped maps: slot d is row base+d for d >= a and row
             // base+capw+d for d < a; only the first row starts at zero
-            const double prev = d == a ? 0.0 : w_end(wm[d == 0 ? capw - 1 : d - 1]);
-            w2 = __dsub_rn(w_end(wm[d]), prev);
+            const double prev = d == a ? 0.0 : w_end(__ldg(wm + (d == 0 ? capw - 1 : d - 1)));
+            w2 = __dsub_rn(w_end(__ldg(wm + d)), prev);
             row = base + d + (d < a ? capw : 0);
         } else {
             // aligned maps: slots before the tile's first row are masked
             if (d < a) continue;
-            const double prev = d - 1 >= a ? w_end(wm[d - 1]) : 0.0;
-            w2 = __dsub_rn(w_end(wm[d]), prev);
+            const double prev = d - 1 >= a ? w_end(__ldg(wm + d - 1)) : 0.0;
+            w2 = __dsub_rn(w_end(__ldg(wm + d)), prev);
             row = base + d;
         }
-        if (w2 != 0.0) atomicAdd(y + row, w2);
+        if (w2 != 0.0) {
+            if (row > rs && row < re)
+                y[row] = w2;  // the row's only partial sum
+            else
+                atomicAdd(y + row, w2);
+        }
     }
 }
 
@@ -136,16 +220,15 @@ extern "C" {
 int csr5_spmv_f64(const void* col, const void* val, const void* win_map,
                   const void* tile_ptr, const void* x, void* y, int p,
                   int sigma, int capw, int win_rel, void* stream) {
-    const size_t smem = (size_t)(sigma + 1) * kLanes * sizeof(double);
-    cudaError_t err = cudaFuncSetAttribute(
-        csr5_spmv_f64_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
     if (p == 0) return 0;
+    const int nends = capw < sigma * kLanes ? capw : sigma * kLanes;
+    const size_t smem = smem_bytes(sigma, nends);
+    cudaError_t err = grant_smem<&csr5_spmv_f64_tile_kernel>(smem);
+    if (err != cudaSuccess) return (int)err;
     csr5_spmv_f64_tile_kernel<<<p, kLanes, smem, (cudaStream_t)stream>>>(
         (const int32_t*)col, (const double*)val, (const int32_t*)win_map,
         (const int32_t*)tile_ptr, (const double*)x, (double*)y, sigma, capw,
-        win_rel);
+        win_rel, nends);
     return (int)cudaGetLastError();
 }
 

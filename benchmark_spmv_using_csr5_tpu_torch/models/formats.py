@@ -6,6 +6,9 @@ each plane can be held against the JAX one. Where the JAX package stores
 flax pytrees, the port stores plain dataclasses; all tensors of a matrix
 live on one device.
 
+:func:`csr_from_numpy` and :func:`csr_from_scipy` build a
+:class:`CSRMatrix` from host arrays or a scipy matrix, as the JAX
+package's do (``formats.py:251-271``).
 :func:`csr5_from_numpy` and :func:`csr5_to_numpy` carry a converted
 matrix across between the two packages as numpy planes (float64 value
 planes included); :func:`csr5_from_df64` builds the float64 plane from
@@ -212,6 +215,38 @@ def col_tiles_from_packed(a5: CSR5Matrix) -> torch.Tensor:
     local = (codes >> 7).reshape(p, 2 * s2 * om).long()
     page = torch.gather(a5.pages, 1, local).reshape(p, 2 * s2, om)
     return page * 128 + lane
+
+
+def csr_from_numpy(
+    row_ptr: np.ndarray,
+    col_idx: np.ndarray,
+    values: np.ndarray,
+    shape: Tuple[int, int],
+    dtype=None,
+    device=DEFAULT_DEVICE,
+) -> CSRMatrix:
+    """A :class:`CSRMatrix` on ``device`` (default: the card) from host
+    arrays, the inputCSR analogue (JAX ``formats.py:251-265``): int32
+    indices, values in ``dtype`` (a numpy or torch dtype) or else their
+    own dtype, ``tuple(shape)``."""
+    device = resolve_device(device, "csr_from_numpy")
+    as_torch = isinstance(dtype, torch.dtype)
+    v = torch.from_numpy(np.array(values, dtype=None if as_torch else dtype, copy=True))
+    if as_torch:
+        v = v.to(dtype)
+    return CSRMatrix(
+        row_ptr=torch.from_numpy(np.asarray(row_ptr, dtype=np.int32).copy()).to(device),
+        col_idx=torch.from_numpy(np.asarray(col_idx, dtype=np.int32).copy()).to(device),
+        values=v.to(device),
+        shape=tuple(shape),
+    )
+
+
+def csr_from_scipy(sp_mat, dtype=None, device=DEFAULT_DEVICE) -> CSRMatrix:
+    """A :class:`CSRMatrix` on ``device`` (default: the card) from a
+    scipy.sparse matrix (JAX ``formats.py:268-271``)."""
+    csr = sp_mat.tocsr()
+    return csr_from_numpy(csr.indptr, csr.indices, csr.data, csr.shape, dtype, device)
 
 
 def _to_tensor(arr, device) -> torch.Tensor:

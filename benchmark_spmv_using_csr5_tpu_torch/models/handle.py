@@ -53,6 +53,9 @@ class SpMVHandle:
         #: the row-sliced form, and the right-hand-side count it was sized for
         self._csr5_sliced: Optional[SlicedCSR5] = None
         self._sliced_rhs = 1
+        #: right-hand-side counts for which re-slicing found no form of its
+        #: own since the last conversion; the held slices serve them
+        self._unsliceable_rhs: set = set()
         self._host_csr = None  # host-side (row_ptr, col_idx, values, shape)
         self._x: Optional[torch.Tensor] = None
         self._sigma: int = AUTO_TUNED_SIGMA
@@ -108,6 +111,7 @@ class SpMVHandle:
         if vdt is None and should_slice(*self.shape):
             self._csr5_sliced = build_csr5_sliced(src, cfg, device=self.device)
             self._sliced_rhs = 1
+            self._unsliceable_rhs = set()
         if self._csr5_sliced is None:
             if self._sigma == AUTO_TUNED_SIGMA:
                 # auto sigma: the structure-aware re-tune; an explicit
@@ -184,14 +188,18 @@ class SpMVHandle:
         if self._csr5_sliced is not None:
             # slices from as_csr5 were sized for one rhs: re-slice for R
             # (the JAX package's cap // R) and keep that form until R
-            # changes, as the JAX handle does (handle.py:181-199)
+            # changes, as the JAX handle does (handle.py:181-199). Where R
+            # has no sliced form, the held slices serve it (K2 takes any R
+            # on each slice) and R is remembered, so it never converts again
             R = int(x_mat.shape[1])
-            if self._sliced_rhs != R:
+            if self._sliced_rhs != R and R not in self._unsliceable_rhs:
                 src = self._host_csr if self._host_csr is not None else self._csr
                 cfg = CSR5Config(sigma=self.compute_sigma())
                 sl_r = build_csr5_sliced(src, cfg, num_rhs=R, device=self.device)
                 if sl_r is not None:
                     self._csr5_sliced, self._sliced_rhs = sl_r, R
+                else:
+                    self._unsliceable_rhs.add(R)
             return sliced_spmm(self._csr5_sliced, x_mat, alpha, backend=self._backend)
         return csr5_spmm(self._csr5, x_mat, alpha, backend=self._backend)
 

@@ -9,8 +9,10 @@ plane, and every add and product is an error-free transformation, about
 float64 value plane (``build_csr5(..., value_dtype=torch.float64)``,
 whose float32 rounding is the JAX hi plane) and K4
 (``csrc/csr5_spmv_f64.cu``) runs K1's tile algorithm on doubles, at
-2^-53. ``csr5_from_df64`` (``models/formats.py``) builds that plane from
-a JAX ``DF64CSR5``.
+2^-53, keeping the tile prefix only at the row ends the window maps name
+and loading a lane's rows eight at a time, one group ahead.
+``csr5_from_df64`` (``models/formats.py``) builds that plane from a JAX
+``DF64CSR5``.
 
 The wrapper checks device, dtypes, shapes and contiguity and raises on
 anything the kernel does not take. It never falls back to the plain
@@ -26,10 +28,12 @@ import torch
 
 from ..models.formats import CSR5Matrix
 from ..utils import cuda_build
-from .csr5_kernel import LANES, _expect
+from .csr5_kernel import LANES, SMEM_MAX, STATIC_SMEM, _expect, row_end_bytes
 
-#: the kernel keeps (sigma + 1) * 128 float64 in shared memory per block;
-#: Hopper gives a block at most 232,448 B, so sigma <= 226
+#: the largest sigma K4 takes: the bound of the first port, which kept the
+#: whole (sigma + 1) * 128 float64 prefix in shared memory; the row-end
+#: layout (:func:`f64_smem_bytes`) fits sigma 224 up to 28,248 row ends
+#: per tile, that is min(capw, sigma * 128) <= 28,248
 MAX_SIGMA = 224
 
 #: K4 launches so far in this process (the wrapper adds one per launch)
@@ -53,15 +57,24 @@ def _lib() -> ctypes.CDLL:
     return _bound
 
 
+def f64_smem_bytes(sigma: int, nends: int) -> int:
+    """K4's dynamic shared memory per block
+    (``csrc/csr5_spmv_f64.cu::smem_bytes``): the float64 prefixes at the
+    ``nends = min(capw, sigma * 128)`` row ends, the 128 lane carries and
+    the row-end planes."""
+    return nends * 8 + LANES * 8 + row_end_bytes(sigma)
+
+
 def f64_supported(a5: CSR5Matrix) -> bool:
     """True when K4 takes ``a5``: a float64 value plane, omega = 128, at
-    least one column, and sigma <= :data:`MAX_SIGMA`, the shared-memory
-    limit of one block at 8 B per prefix element."""
+    least one column, sigma <= :data:`MAX_SIGMA`, and the shared memory of
+    one block (:func:`f64_smem_bytes`) within what Hopper gives a block."""
     return (
         a5.val_tiles.dtype == torch.float64
         and a5.omega == LANES
         and a5.n >= 1
         and a5.sigma <= MAX_SIGMA
+        and f64_smem_bytes(a5.sigma, min(a5.capw, a5.sigma * LANES)) <= SMEM_MAX - STATIC_SMEM
     )
 
 
@@ -79,8 +92,9 @@ def csr5_spmv_f64_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tens
         )
     if not f64_supported(a5):
         raise ValueError(
-            f"{who}: sigma={a5.sigma}, omega={a5.omega}, n={a5.n} exceed the kernel's "
-            f"limits (omega 128, n >= 1, sigma <= {MAX_SIGMA}: one block's shared memory)"
+            f"{who}: sigma={a5.sigma}, capw={a5.capw}, omega={a5.omega}, n={a5.n} exceed "
+            f"the kernel's limits (omega 128, n >= 1, sigma <= {MAX_SIGMA}, one block's "
+            "shared memory)"
         )
     dev = x.device
     p, sig, capw = a5.num_tiles, a5.sigma, a5.capw

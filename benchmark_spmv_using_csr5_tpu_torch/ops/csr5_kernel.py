@@ -18,10 +18,14 @@ Each of the four kernels has its own launch counter.
 K2 (``csrc/csr5_spmm.cu``) is the same kernel at R > 1
 (``_csr5_spmm_pallas_jit``, ``csr5_spmm_pallas``): each tile's column and
 value planes are read once per chunk of up to 16 right-hand sides, and the
-partial sums go into a zeroed Y with atomics. Both layouts of the JAX API
-are taken, ``"nr"`` (X (n, R), Y (m, R)) and ``"rn"`` (X^T (R, n), Y^T
-(R, m)), through strides: X is never copied except to fold alpha in, as
-the Pallas wrappers do.
+partial sums go into a zeroed Y. Both layouts of the JAX API are taken,
+``"nr"`` (X (n, R), Y (m, R)) and ``"rn"`` (X^T (R, n), Y^T (R, m)),
+through strides: X is never copied except to fold alpha in, as the Pallas
+wrappers do. A launch reads X in one of two modes (:func:`spmm_mode`):
+``"staged"`` copies the X rows of each tile's pages into shared memory
+once per chunk (packed launches and ``pages_contig`` matrices, when the
+window fits :data:`SPMM_SMEM_BUDGET`), ``"gathered"`` reads each
+nonzero's X row from global memory.
 
 The wrappers check device, dtypes, shapes and contiguity and raise on
 anything the kernels do not take. They never fall back to the plain
@@ -59,8 +63,11 @@ SPMM_MAX_CHUNK = 16
 #: K2's shared-memory budget per block when it picks the chunk: 64 KB
 #: keeps three blocks on an SM; a chunk of 1 may use all a block can have
 SPMM_SMEM_BUDGET = 64 * 1024
-#: the most dynamic shared memory one block can have on Hopper
+#: the most shared memory one block can have on Hopper
 SMEM_MAX = 232_448
+#: room kept in a block's shared memory for a kernel's static arrays (K2:
+#: 16 B, K4: 48 B); the rest is dynamic
+STATIC_SMEM = 64
 _INT32_MAX = 2**31 - 1
 
 _bound = None
@@ -95,10 +102,10 @@ def _lib_spmm() -> ctypes.CDLL:
         lib = cuda_build.load("csr5_spmm")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.csr5_spmm_f32, lib.csr5_spmm_bf16):
-            # col, val, win_map, tile_ptr, pages, pmax, packed, x, y, p,
-            # sigma, capw, win_rel, nends, m, R, xs_c, xs_r, ys_row, ys_r,
-            # rc, vec, stream
-            fn.argtypes = [ptr] * 5 + [i32] * 2 + [ptr] * 2 + [i32] * 7 + [i64] * 4 + [i32] * 2 + [ptr]
+            # col, val, win_map, tile_ptr, pages, pmax, packed, staged, x, y,
+            # p, sigma, capw, win_rel, nends, m, n, R, xs_c, xs_r, ys_row,
+            # ys_r, rc, vec, stream
+            fn.argtypes = [ptr] * 5 + [i32] * 3 + [ptr] * 2 + [i32] * 8 + [i64] * 4 + [i32] * 2 + [ptr]
             fn.restype = i32
         lib.csr5_spmm_error_string.argtypes = [i32]
         lib.csr5_spmm_error_string.restype = ctypes.c_char_p
@@ -206,13 +213,41 @@ def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     return y[: a5.m]
 
 
-def spmm_smem_bytes(sigma: int, nends: int, rc: int, packed: bool = False) -> int:
+def row_end_bytes(sigma: int) -> int:
+    """Bytes of the row-end planes of a (sigma, 128) tile
+    (``csrc/csr5_rowends.cuh``): per lane and 32-bit word of sigma, a
+    uint32 mask and a uint16 count."""
+    return -(-sigma // 32) * LANES * 6
+
+
+def spmm_window_stride(rc: int) -> int:
+    """Floats per slot of K2's row-end sums and lane carries
+    (``csrc/csr5_spmm.cu::win_stride``): rc, padded at rc >= 8 to rc + 4
+    so the slot stride is an odd number of 16 B units (the float4 accesses
+    of slots that differ mod 8 fall on distinct banks)."""
+    return rc + 4 if rc >= 8 else rc
+
+
+def spmm_plane_floats(pages: int) -> int:
+    """Floats per rhs plane of K2's staged X window of ``pages`` pages
+    (``csrc/csr5_spmm.cu::plane_floats``): 128 slots a page and a float of
+    pad after every 32."""
+    return pages * (LANES + 4)
+
+
+def spmm_smem_bytes(
+    sigma: int, nends: int, rc: int, packed: bool = False, window_pages: int = 0
+) -> int:
     """K2's shared memory per block (``csrc/csr5_spmm.cu::smem_bytes``):
-    the row-end sums (nends, rc), the lane carries (128, rc) and warp
-    totals (4, rc) in float32, and the uint16 row-end ids of the (sigma,
-    128) tile; K2p adds the high codes of the (sigma/2, 128) packed words
-    (uint16)."""
-    b = (nends * rc + LANES * rc + 4 * rc) * 4 + sigma * LANES * 2
+    the staged X window (rc planes of :func:`spmm_plane_floats`
+    (``window_pages``) float32s; 0 pages when gathered), the row-end sums
+    (nends slots) and lane carries (128 slots) of
+    :func:`spmm_window_stride` float32s, the warp totals (4, rc) and the
+    row-end planes; K2p adds the high codes of the (sigma/2, 128) packed
+    words (uint16)."""
+    stride = spmm_window_stride(rc)
+    b = spmm_plane_floats(window_pages) * rc * 4
+    b += (nends * stride + LANES * stride + 4 * rc) * 4 + row_end_bytes(sigma)
     if packed:
         b += (sigma // 2) * LANES * 2
     return b
@@ -221,8 +256,9 @@ def spmm_smem_bytes(sigma: int, nends: int, rc: int, packed: bool = False) -> in
 def spmm_chunk(a5: CSR5Matrix, num_rhs: int) -> int:
     """K2's right-hand sides per chunk for ``a5`` and ``num_rhs``: the
     power of two that covers min(R, 16), halved until the block's shared
-    memory fits :data:`SPMM_SMEM_BUDGET`; 1 when only a single rhs fits
-    the whole of a block's shared memory; 0 when not even that fits."""
+    memory without a window fits :data:`SPMM_SMEM_BUDGET`; 1 when only a
+    single rhs fits the whole of a block's shared memory; 0 when not even
+    that fits."""
     if num_rhs < 1:
         return 0
     nends = min(a5.capw, a5.sigma * LANES)
@@ -232,14 +268,30 @@ def spmm_chunk(a5: CSR5Matrix, num_rhs: int) -> int:
         rc *= 2
     while rc > 1 and spmm_smem_bytes(a5.sigma, nends, rc, packed) > SPMM_SMEM_BUDGET:
         rc //= 2
-    return rc if spmm_smem_bytes(a5.sigma, nends, rc, packed) <= SMEM_MAX else 0
+    return rc if spmm_smem_bytes(a5.sigma, nends, rc, packed) <= SMEM_MAX - STATIC_SMEM else 0
+
+
+def spmm_mode(a5: CSR5Matrix, num_rhs: int) -> str:
+    """How K2/K2p reads X for ``a5`` and ``num_rhs``: ``"staged"`` (each
+    tile's pages of X copied into shared memory once per chunk) when the
+    launch is packed or the pages are contiguous (``pages_contig``) and the
+    window of ``pmax`` pages fits :data:`SPMM_SMEM_BUDGET` at the chunk of
+    :func:`spmm_chunk`; else ``"gathered"`` (raw columns on a page list,
+    or a window too large). Both are the hand-written kernel."""
+    rc = spmm_chunk(a5, num_rhs)
+    packed = a5.col_packed is not None
+    if rc and (packed or a5.pages_contig):
+        need = spmm_smem_bytes(a5.sigma, min(a5.capw, a5.sigma * LANES), rc, packed, a5.pmax)
+        if need <= SPMM_SMEM_BUDGET:
+            return "staged"
+    return "gathered"
 
 
 def spmm_supported(a5: CSR5Matrix, num_rhs: int) -> bool:
     """True when K2 takes ``a5`` with ``num_rhs`` right-hand sides (the
     counterpart of ``pallas_spmm_supported``): omega = 128, R >= 1, the
-    row-end ids fit uint16 (sigma * 128 < 65536), the shared memory of one
-    block fits at a chunk of 1, and (n, R), (m, R) fit int32 indices."""
+    row-end counts fit uint16 (sigma * 128 < 65536), the shared memory of
+    one block fits at a chunk of 1, and (n, R), (m, R) fit int32 indices."""
     if a5.omega != LANES or num_rhs < 1 or a5.sigma * LANES >= 65536:
         return False
     if max(a5.m_pad, a5.n) * num_rhs > _INT32_MAX:
@@ -283,6 +335,10 @@ def csr5_spmm_cuda(
         raise ValueError(f"{who}: x is on {dev}; launch under torch.cuda.device({dev})")
     _expect(x, "X", (torch.float32,), (R, n) if rn else (n, R), dev, who)
     _expect_planes(a5, dev, who)
+    packed = a5.col_packed is not None
+    staged = spmm_mode(a5, R) == "staged"
+    if staged and not packed:
+        _expect(a5.pages, "pages", (torch.int32,), (a5.num_tiles, a5.pmax), dev, who)
 
     lib = _lib_spmm()
     fn = lib.csr5_spmm_bf16 if a5.val_tiles.dtype == torch.bfloat16 else lib.csr5_spmm_f32
@@ -292,15 +348,16 @@ def csr5_spmm_cuda(
     ys_row, ys_r = (1, m) if rn else (R, 1)
     vec = int(not rn and R % 4 == 0 and xa.data_ptr() % 16 == 0)
     rc = spmm_chunk(a5, R)
-    packed = a5.col_packed is not None
+    uses_pages = packed or staged
     rcode = fn(
         (a5.col_packed if packed else a5.col_idx_tiles).data_ptr(),
         a5.val_tiles.data_ptr(),
         a5.win_map.data_ptr(),
         a5.tile_ptr.data_ptr(),
-        a5.pages.data_ptr() if packed else 0,
-        a5.pmax if packed else 0,
+        a5.pages.data_ptr() if uses_pages else 0,
+        a5.pmax if uses_pages else 0,
         int(packed),
+        int(staged),
         xa.data_ptr(),
         y.data_ptr(),
         a5.num_tiles,
@@ -309,6 +366,7 @@ def csr5_spmm_cuda(
         int(a5.win_rel),
         min(a5.capw, a5.sigma * LANES),
         m,
+        n,
         R,
         xs_c,
         xs_r,

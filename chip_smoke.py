@@ -45,7 +45,10 @@ Phases, each of which must pass:
    and 4: R in {1, 2, 5, 8, 16, 17}, both layouts, float32 and bfloat16
    planes (K7: "highest" and "default" on float32, "default" on bfloat16),
    alpha = -1.75, exact on integer data; one case of random floats each,
-   held to 1e-5 of each row's |A||X|;
+   held to 1e-5 of each row's |A||X|. Every K2 case prints the staging
+   mode of its launches (``spmm_mode``: X staged in shared memory, or
+   gathered), and the phase fails unless both modes ran and every launch
+   in each was exact;
 8. the SpMM path at full width through the CLI's own code and the API:
    ``--spmm 8`` at banded500k (csr5: K2), ``--format bandblock --spmm 8``
    and ``--spmm 16`` (K7, bfloat16 plane by the gate), ``--format auto
@@ -55,9 +58,9 @@ Phases, each of which must pass:
    spmmf8 (banded500k with decade-spread values, X on [0.5, 1.5]): the
    auto gate must pick a float32 plane and K7 land within 1e-4 of the
    float64 oracle, and a forced bfloat16 plane within 1 %;
-9. K2, K6 and K7 at R = 8 on the same banded500k matrix and X, and K7 at
-   R = 16, in turns with their plain versions, and their device times by
-   ``torch.profiler``: the card's own SpMM crossover;
+9. K2 (with its staging mode), K6 and K7 at R = 8 on the same banded500k
+   matrix and X, and K7 at R = 16, in turns with their plain versions, and
+   their device times by ``torch.profiler``: the card's own SpMM crossover;
 10. kernel K4 (float64 CSR5 SpMV) against its plain version and scipy
     float64 on the odd shapes of phase 2: exact on integer data at alpha 1
     and -1.75, within T * 2^-53 of the row's tile mass on non-dyadic
@@ -70,7 +73,8 @@ Phases, each of which must pass:
     iterative refinement (K1 inner CG, K4 residual) to at most 1e-10
     relative residual and 10x below float32-only CG, with the launches of
     K4 and K1 over that run;
-12. K4 and its plain version at df64_banded500k in turns, its device
+12. K4 at df64_banded500k in turns with cuSPARSE's float64 SpMV (k4,
+    lib, lib, k4; the ratio printed) and with its plain version, its device
     time, the library yardstick (``torch.sparse_csr_tensor @ x``, cuSPARSE
     through PyTorch, used nowhere in the port) beside every kernel, and
     each kernel's bound from this run's inputs;
@@ -82,7 +86,7 @@ Phases, each of which must pass:
     forced multi-slice builds (an empty slice, a window past n, packed
     slices, bfloat16 and float32 slices in one matrix), exact on integer
     data at alpha 1 and -1.75; one random-float case each within 1e-5 of
-    each row's |A||x|;
+    each row's |A||x|; K2p's staging modes as in phase 7, both required;
 14. the large-matrix path at full width through the CLI's and the API's
     own code: ``--synthetic banded:2000000:27`` (K1), ``banded:20000000:27``
     (the row-sliced form, K3), the same matrix through ``run_benchmark(...,
@@ -93,8 +97,9 @@ Phases, each of which must pass:
     each phase's seconds and the peak host memory;
 15. in turns on the same inputs: K3 against one whole-matrix K1 pass at
     banded20M, K1p against K1 on the raw plane and K2p against K2 at
-    banded500k sigma 16, with device times by torch.profiler, each one's
-    bound from this run's inputs and the cuSPARSE yardstick.
+    banded500k sigma 16 (each with its staging mode), with device times by
+    torch.profiler, each one's bound from this run's inputs and the
+    cuSPARSE yardstick.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails. The last line of standard output is
@@ -506,6 +511,33 @@ def _both_layouts(fn, mat, xd, alpha, **kw):
     return y_nr, y_rn
 
 
+def count_mode(modes, a5, R, ok) -> None:
+    """Counts one K2/K2p launch on ``a5`` at ``R`` in the staging mode it
+    took ("staged" or "gathered"), and whether it was exact."""
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_kernel import spmm_mode
+
+    mode = modes[spmm_mode(a5, R)]
+    mode[0] += 1
+    mode[1] += int(ok)
+
+
+def mode_list(a5) -> str:
+    """The staging mode K2/K2p takes on ``a5`` at each R of SWEEP_RHS
+    ("s" staged, "g" gathered)."""
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_kernel import spmm_mode
+
+    return "/".join(spmm_mode(a5, R)[0] for R in SWEEP_RHS)
+
+
+def modes_ran(tag, modes) -> list:
+    """The failures of a sweep's staging modes: each must have launched,
+    and every launch in it been exact."""
+    say(f"[{tag} staging modes] " + ", ".join(
+        f"{m}: {ok} of {n} launches exact" for m, (n, ok) in modes.items()))
+    return [f"{tag} {m}: {n - ok} of {n} launches not exact" if n else f"{tag} {m}: never ran"
+            for m, (n, ok) in modes.items() if n == 0 or ok < n]
+
+
 def spmm_sweep(dev, rng) -> list:
     """K2 and K7 against their plain versions on the card and scipy on
     the odd shapes of phases 2 and 4, every R of SWEEP_RHS, both layouts,
@@ -524,6 +556,7 @@ def spmm_sweep(dev, rng) -> list:
     alpha = -1.75
     rmax = max(SWEEP_RHS)
     failed = []
+    modes = {"staged": [0, 0], "gathered": [0, 0]}  # mode -> [launches, exact ones]
     # K2 on phase 2's shapes
     for name, a_sp, cfg, win_mode in sweep_cases(synth, CSR5Config):
         a = sp.csr_matrix(a_sp).astype(np.float32)
@@ -538,12 +571,16 @@ def spmm_sweep(dev, rng) -> list:
                 y_nr, y_rn = _both_layouts(csr5_kernel.csr5_spmm_cuda, a5, xr, alpha)
                 y_p = csr5_spmm_torch(a5, xr, alpha).cpu()
                 y_s = torch.from_numpy((alpha * (a @ xm[:, :R])).astype(np.float32))
-                if not (_exact(y_nr, y_p, y_s) and torch.equal(y_rn, y_s)):
+                ok = _exact(y_nr, y_p, y_s) and torch.equal(y_rn, y_s)
+                count_mode(modes, a5, R, ok)
+                if not ok:
                     errs.append(f"R={R}")
             tag = f"K2 {name}/{str(vdt).removeprefix('torch.')}"
             failed += [f"{tag} {e}" for e in errs]
             say(f"[{tag}] {'PASS' if not errs else 'FAIL ' + ','.join(errs)} R {SWEEP_RHS} "
-                f"nr+rn sigma={a5.sigma} capw={a5.capw} chunk(8)={csr5_kernel.spmm_chunk(a5, 8)}")
+                f"nr+rn sigma={a5.sigma} capw={a5.capw} chunk(8)={csr5_kernel.spmm_chunk(a5, 8)} "
+                f"pmax={a5.pmax} contig={a5.pages_contig} modes {mode_list(a5)}")
+    failed += modes_ran("K2", modes)
     # K7 on phase 4's shapes and the band-block test shapes
     bb_cases = list(dia_cases(synth, sp, np, CHUNK_ROWS))
     rows = np.arange(300)
@@ -696,13 +733,15 @@ def spmm_path(dev, failed, mix_hyb):
         x = np.random.default_rng(0).integers(1, 10, (r.n, r.num_rhs))
         xd = torch.from_numpy(x.astype(np.float32)).to(dev)
         if r.format == "bandblock":
-            y_p, key = bandmm_spmm_torch(r.matrix, xd), "bandmm_spmm"
+            y_p, key, how = bandmm_spmm_torch(r.matrix, xd), "bandmm_spmm", ""
         else:
             y_p, key = csr5_spmm_torch(r.matrix, xd), "csr5_spmm"
+            how = f" (K2 {csr5_kernel.spmm_mode(r.matrix, r.num_rhs)})"
         e = float((r.y - y_p).abs().max())
         err[key] = max(err[key], e)
         exact = torch.equal(r.y, y_p)
-        say(f"[{name}] kernel Y vs plain on the card: max abs err {e} {'PASS' if exact else 'FAIL'}")
+        say(f"[{name}] kernel Y vs plain on the card{how}: max abs err {e} "
+            f"{'PASS' if exact else 'FAIL'}")
         if not exact:
             failed.append(f"{name} vs plain")
     rel = harness.rel_err(y_hyb, y_mix_ref)
@@ -766,7 +805,8 @@ def spmm_crossover(dev, card, a5, dia, bb):
     }
     say(f"[banded500k SpMM crossover, {card}] turns (ms per call, event loop): "
         + ", ".join(f"{k} {v}" for k, v in times.items()))
-    say(f"[banded500k SpMM crossover] R=8: K2 (CSR5, {mb['k2']:.1f} MB cols+vals) {t['k2']:.5f} ms, "
+    say(f"[banded500k SpMM crossover] R=8: K2 (CSR5, {mb['k2']:.1f} MB cols+vals, "
+        f"{csr5_kernel.spmm_mode(a5, 8)}) {t['k2']:.5f} ms, "
         f"K6 (DIA, {mb['k6']:.1f} MB plane) {t['k6']:.5f} ms, K7 (band-block, "
         f"{str(bb.dtype).removeprefix('torch.')} plane of {mb['k7']:.1f} MB, K={bb.K}) "
         f"{t['k7']:.5f} ms; R=16: K7 {t['k7_r16']:.5f} ms; plain K2 {t['k2_plain']:.4f}, "
@@ -1006,20 +1046,26 @@ def yardstick(dev, card, kind, df64, a64, mats):
 
     gbps = perf.device_hbm_gbps(kind)
     x64 = torch.from_numpy(np.random.default_rng(0).integers(1, 10, a64.n).astype(np.float64)).to(dev)
-    times = {"k4": [], "k4_plain": []}
-    for k in ("k4_plain", "k4", "k4", "k4_plain"):
-        fn = csr5_f64.csr5_spmv_f64_cuda if k == "k4" else csr5_spmv_torch
-        times[k].append(perf.benchmark(fn, a64, x64, device=dev, num_run=100 if k == "k4" else 20))
-    k4_ms, k4_plain_ms = (sum(times[k]) / 2 for k in ("k4", "k4_plain"))
-
     band = sp.csr_matrix(synth.banded(500_000, 27)).astype(np.float32)
     A32, A64 = library_csr(band, np.float32, dev), library_csr(df64, np.float64, dev)
+    mm = lambda A, v: A @ v  # noqa: E731
+    # K4 in turns with cuSPARSE's float64 SpMV on the same matrix and x, then
+    # with its plain version
+    fns = {"k4": (csr5_f64.csr5_spmv_f64_cuda, a64, 100), "lib_f64": (mm, A64, 100),
+           "k4_plain": (csr5_spmv_torch, a64, 20)}
+    times = {k: [] for k in fns}
+    for k in ("k4", "lib_f64", "lib_f64", "k4", "k4_plain", "k4", "k4", "k4_plain"):
+        fn, mat, n = fns[k]
+        times[k].append(perf.benchmark(fn, mat, x64, device=dev, num_run=n))
+    k4_ms, k4_plain_ms, lib_f64_ms = (sum(times[k]) / len(times[k])
+                                      for k in ("k4", "k4_plain", "lib_f64"))
+    k4_lib = sum(times["k4"][:2]) / sum(times["lib_f64"])
+
     x = mats["csr5_spmv"][1]
     X8 = mats["csr5_spmm"][1]
-    mm = lambda A, v: A @ v  # noqa: E731
     lib = {
         "spmv_f32": perf.benchmark(mm, A32, x, device=dev, num_run=100),
-        "spmv_f64": perf.benchmark(mm, A64, x64, device=dev, num_run=100),
+        "spmv_f64": lib_f64_ms,
         "spmm8_f32": perf.benchmark(mm, A32, X8, device=dev, num_run=100),
     }
     dev_us = {
@@ -1057,7 +1103,13 @@ def yardstick(dev, card, kind, df64, a64, mats):
         + ", ".join(f"{k} {v}" for k, v in times.items())
         + f"; K4 {k4_ms:.5f} ms, device {dev_us['k4']} us, bound {out['csr5_spmv_f64'][0] * 1e3:.2f} us "
         f"({nbytes(a64.col_idx_tiles, a64.val_tiles, a64.win_map, a64.tile_ptr) / 1e6:.1f} MB planes "
-        f"+ x, y); plain {k4_plain_ms:.4f} ms")
+        f"+ x, y); plain {k4_plain_ms:.4f} ms; cuSPARSE float64 {lib_f64_ms:.5f} ms, device "
+        f"{dev_us['lib_spmv_f64']} us")
+    dev_ratio = (dev_us["k4"] / dev_us["lib_spmv_f64"]
+                 if dev_us["k4"] and dev_us["lib_spmv_f64"] else None)
+    say(f"[df64_banded500k K4 / cuSPARSE float64, in turns k4, lib, lib, k4] {k4_lib:.4f} per call "
+        f"(event loop), {'not measured' if dev_ratio is None else f'{dev_ratio:.4f}'} in device "
+        f"time [{card}]")
     say(f"[library yardstick, torch.sparse_csr_tensor @ dense, {card}] ms per call (event loop): "
         + ", ".join(f"{k} {v:.5f}" for k, v in lib.items())
         + "; device us per call: " + ", ".join(
@@ -1123,6 +1175,7 @@ def large_sweep(dev, rng) -> list:
     cases.append(("fem_small_s16", synth.fem_blocks(6000, neighbors=9, node_bandwidth=600),
                   CSR5Config(sigma=16), "auto"))
     packed_cases = 0
+    modes = {"staged": [0, 0], "gathered": [0, 0]}  # mode -> [launches, exact ones]
     for name, a_sp, cfg, win_mode in cases:
         a = sp.csr_matrix(a_sp).astype(np.float32)
         x = rng.integers(1, 10, a.shape[1]).astype(np.float32)
@@ -1150,15 +1203,18 @@ def large_sweep(dev, rng) -> list:
                 y_nr, y_rn = _both_layouts(csr5_kernel.csr5_spmm_cuda, a5, xr, alpha)
                 y_p = csr5_spmm_packed_torch(a5, xr, alpha).cpu()
                 y_s = torch.from_numpy((alpha * (a @ xm[:, :R])).astype(np.float32))
-                if not (_exact(y_nr, y_p, y_s) and torch.equal(y_rn, y_s)):
+                ok = _exact(y_nr, y_p, y_s) and torch.equal(y_rn, y_s)
+                count_mode(modes, a5, R, ok)
+                if not ok:
                     errs.append(f"K2p R={R}")
             failed += [f"{tag} {e}" for e in errs]
             say(f"[{tag}] {'PASS' if not errs else 'FAIL ' + ','.join(errs)} sigma={a5.sigma} "
                 f"pmax={a5.pmax} contig={a5.pages_contig} tiles={a5.num_tiles} "
                 f"win={'wrapped' if a5.win_rel else 'aligned'} K2p R {SWEEP_RHS} nr+rn, "
-                f"chunk(8)={csr5_kernel.spmm_chunk(a5, 8)}")
+                f"chunk(8)={csr5_kernel.spmm_chunk(a5, 8)} modes {mode_list(a5)}")
     if packed_cases < 20:
         failed.append(f"only {packed_cases} packed K1p/K2p cases")
+    failed += modes_ran("K2p", modes)
 
     # K3 over forced multi-slice builds
     mixed = sp.csr_matrix(synth.banded(4000, 9)).astype(np.float32)
@@ -1456,9 +1512,10 @@ def large_turns(dev, card, kind, res, a20, band500k):
     say(f"[banded500k sigma 16] K1p {t['k1p']:.5f} ms (device {dev_us['k1p']} us, bound "
         f"{bp[0] * 1e3:.2f} us on {planes(a5p) / 1e6:.1f} MB planes) vs K1 on the raw plane "
         f"{t['k1_raw']:.5f} ms (device {dev_us['k1_raw']} us, bound {br[0] * 1e3:.2f} us on "
-        f"{planes(a5r) / 1e6:.1f} MB); R=8: K2p {t['k2p']:.5f} ms (device {dev_us['k2p']} us, bound "
-        f"{b2p[0] * 1e3:.2f} us) vs K2 {t['k2_raw']:.5f} ms (device {dev_us['k2_raw']} us, bound "
-        f"{b2r[0] * 1e3:.2f} us); plain K1p {t['k1p_plain']:.4f}, K2p {t['k2p_plain']:.4f} ms; "
+        f"{planes(a5r) / 1e6:.1f} MB); R=8: K2p ({csr5_kernel.spmm_mode(a5p, 8)}) {t['k2p']:.5f} ms "
+        f"(device {dev_us['k2p']} us, bound {b2p[0] * 1e3:.2f} us) vs K2 "
+        f"({csr5_kernel.spmm_mode(a5r, 8)}) {t['k2_raw']:.5f} ms (device {dev_us['k2_raw']} us, "
+        f"bound {b2r[0] * 1e3:.2f} us); plain K1p {t['k1p_plain']:.4f}, K2p {t['k2p_plain']:.4f} ms; "
         f"cuSPARSE SpMV {lib1:.5f}, SpMM R=8 {lib8:.5f} ms; pmax {a5p.pmax}, tiles {a5p.num_tiles} "
         f"[{card}]")
     return out

@@ -24,6 +24,8 @@ Tolerances:
   of ``_tile_scale`` and no larger than the JAX df64 kernel's own error.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -243,3 +245,22 @@ def test_f64_supported_gate():
     assert not P.f64_supported(wide)
     assert P.f64_supported(_port64((a.indptr, a.indices, a.data, a.shape),
                                    P.CSR5Config(sigma=csr5_f64.MAX_SIGMA)))
+
+
+def test_k4_shared_memory_mirror_and_gate():
+    """K4 keeps the float64 prefix only at the row ends (csrc/csr5_spmv_f64.cu
+    ::smem_bytes): nends * 8 B with nends = min(capw, sigma * 128), the 128
+    lane carries, and the row-end planes (a uint32 mask and a uint16 count
+    per lane and 32 rows). The gate refuses a block that would not fit
+    Hopper's 232,448 B beside the static arrays, which at sigma 224 is more
+    than 28,248 row ends."""
+    assert csr5_f64.f64_smem_bytes(24, 128) == 128 * 8 + 128 * 8 + 768
+    assert csr5_f64.f64_smem_bytes(224, 28_672) == 28_672 * 8 + 1024 + 7 * 768
+    # at df64_banded500k's shape (sigma 24, capw 128): 2.8 KB, where the whole
+    # prefix took (24 + 1) * 128 * 8 = 25.6 KB
+    assert csr5_f64.f64_smem_bytes(24, 128) < (24 + 1) * 128 * 8 // 9
+    a = sp.csr_matrix(synth.banded(3000, 27, dtype=np.float64))
+    a5 = _port64((a.indptr, a.indices, a.data, a.shape), P.CSR5Config(sigma=csr5_f64.MAX_SIGMA))
+    assert P.f64_supported(a5)
+    assert P.f64_supported(dataclasses.replace(a5, capw=28_248))
+    assert not P.f64_supported(dataclasses.replace(a5, capw=28_249))

@@ -189,3 +189,38 @@ def test_autotuned_build_transposes_and_uploads_once(monkeypatch):
     calls.update(transpose=0, upload=0)
     convert.build_csr5(host, P.CSR5Config(sigma=16), device="cpu")
     assert tuned == calls and calls["transpose"] == 2
+
+
+def test_sliced_handle_converts_at_most_once_per_rhs(monkeypatch):
+    """With the JAX package's slicing cap cut to 3000 elements, a 4000-row
+    band takes the row-sliced form. Re-slicing for R = 4 succeeds (cap //
+    4) and is kept while R stays; for R = 8 and 16 one row quantum alone
+    passes cap // R, so the build returns None: the held slices serve R
+    (K2 takes any R on each slice) and the handle does not convert again.
+    A new conversion (setSigma) forgets what it learnt."""
+    from benchmark_spmv_using_csr5_tpu_torch.models import handle as handle_mod
+    from benchmark_spmv_using_csr5_tpu_torch.ops import bigslice
+
+    monkeypatch.setattr(bigslice, "_SLICE_ELEM_CAP", 3000)
+    calls = []
+
+    def counted(src, cfg=None, num_rhs=1, **kw):
+        out = bigslice.build_csr5_sliced(src, cfg, num_rhs=num_rhs, **kw)
+        calls.append((num_rhs, out is not None))
+        return out
+
+    monkeypatch.setattr(handle_mod, "build_csr5_sliced", counted)
+    a = sp.csr_matrix(synth.banded(4000, 9)).astype(np.float32)
+    a.data = np.random.default_rng(4).integers(1, 10, a.nnz).astype(np.float32)
+    h = P.SpMVHandle(*a.shape, device="cpu").inputCSR(a.nnz, a.indptr, a.indices, a.data).asCSR5()
+    assert h.csr5 is None and h.csr5_sliced is not None and calls == [(1, True)]
+    rng = np.random.default_rng(5)
+    for R in (8, 8, 16, 8, 1, 16, 4, 4, 8):
+        X = rng.integers(1, 10, (a.shape[1], R)).astype(np.float32)
+        np.testing.assert_array_equal(h.spmm(X, -1.75).numpy(), (-1.75 * (a @ X)).astype(np.float32))
+    assert calls == [(1, True), (8, False), (16, False), (4, True)]
+    assert h._sliced_rhs == 4 and h.csr5_sliced.num_slices > 4
+    h.setSigma(16)
+    X = rng.integers(1, 10, (a.shape[1], 8)).astype(np.float32)
+    np.testing.assert_array_equal(h.spmm(X).numpy(), a @ X)
+    assert calls[4:] == [(1, True), (8, False)] and h._sliced_rhs == 1

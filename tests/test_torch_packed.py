@@ -243,6 +243,16 @@ def test_k2p_shared_memory():
     for R in (1, 8, 16, 17):
         rc = csr5_kernel.spmm_chunk(a5, R)
         assert csr5_kernel.spmm_smem_bytes(a5.sigma, nends, rc, True) <= csr5_kernel.SPMM_SMEM_BUDGET
+        # a staged launch adds the window of pmax pages; K2p stages whenever
+        # that still fits the budget (its codes are already window slots)
+        staged = csr5_kernel.spmm_smem_bytes(a5.sigma, nends, rc, True, a5.pmax)
+        assert staged == csr5_kernel.spmm_smem_bytes(a5.sigma, nends, rc, True) + (
+            rc * csr5_kernel.spmm_plane_floats(a5.pmax) * 4
+        )
+        want = "staged" if staged <= csr5_kernel.SPMM_SMEM_BUDGET else "gathered"
+        assert csr5_kernel.spmm_mode(a5, R) == want
+    # this scattered band's 16 pages stage one rhs, not eight
+    assert (csr5_kernel.spmm_mode(a5, 1), csr5_kernel.spmm_mode(a5, 8)) == ("staged", "gathered")
 
 
 def test_harness_counts_every_kernel():

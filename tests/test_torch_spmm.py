@@ -16,6 +16,8 @@ exactly. On random floats the executors sum the tile prefix in another
 order: rtol 1e-5 against each row's absolute sum |A| @ |X|.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -211,3 +213,65 @@ def test_spmm_chunk_and_gate():
         assert csr5_kernel.spmm_smem_bytes(a5.sigma, nends, rc) <= csr5_kernel.SPMM_SMEM_BUDGET
     wide = P.build_csr5(sp.csr_matrix(synth.banded(3000, 27)).astype(np.float32), P.CSR5Config(sigma=512), device="cpu")
     assert not csr5_kernel.spmm_supported(wide, 8)
+    # the mirror of csrc/csr5_spmm.cu::smem_bytes, term by term: the staged
+    # window (rc planes of 3 pages * 128 slots, a float of pad after every
+    # 32); the row-end sums (nends slots) and lane carries (128 slots), each
+    # slot rc floats padded to rc + 4 at rc >= 8; the warp totals; the
+    # row-end planes (a uint32 mask and a uint16 count per lane and 32 rows)
+    for rc, stride in ((1, 1), (2, 2), (4, 4), (8, 12), (16, 20)):
+        assert csr5_kernel.spmm_window_stride(rc) == stride
+        assert csr5_kernel.spmm_smem_bytes(24, 300, rc, window_pages=3) == (
+            rc * 3 * (128 + 4) * 4 + (300 * stride + 128 * stride + 4 * rc) * 4 + 1 * 128 * 6
+        )
+    assert csr5_kernel.row_end_bytes(24) == 768 and csr5_kernel.row_end_bytes(33) == 1536
+
+
+def _mode_by_hand(a5j, R, packed):
+    """K2's staging mode from the JAX matrix's gather plan: staged when the
+    launch is packed or its pages are contiguous and the pmax-page window
+    fits the 64 KB budget beside the chunk's other shared memory (rc
+    planes of 128 slots a page and a float of pad per 32)."""
+    sigma = a5j.config.sigma
+    nends = min(a5j.capw, sigma * 128)
+
+    def rest(rc):  # everything but the window
+        stride = rc + 4 if rc >= 8 else rc
+        return ((nends + 128) * stride + 4 * rc) * 4 + -(-sigma // 32) * 768 + (
+            sigma // 2 * 256 if packed else 0)
+
+    rc = 1
+    while rc < min(R, 16):
+        rc *= 2
+    while rc > 1 and rest(rc) > 64 * 1024:
+        rc //= 2
+    window = rc * a5j.pmax * (128 + 4) * 4
+    staged = (packed or a5j.pages_contig) and window + rest(rc) <= 64 * 1024
+    return "staged" if staged else "gathered"
+
+
+@pytest.mark.parametrize(
+    "name,make,sigma",
+    [
+        ("banded", lambda: synth.banded(3000, 27), 24),
+        ("banded_s32", lambda: synth.banded(1500, 9), 32),
+        ("scatband", lambda: synth.scattered_band(2000, 12, 1800), 16),
+        ("powerlaw", lambda: synth.power_law(3000, 3000, 8.0), 8),
+    ],
+)
+def test_spmm_mode_follows_the_jax_gather_plan(name, make, sigma):
+    """The port's page plan equals the JAX one (pages, pmax, pages_contig),
+    and the staging mode of each launch follows from it: raw columns on
+    contiguous pages and packed columns stage X while the window fits,
+    raw columns on page lists gather."""
+    _, a5j, a5p = _pair(make(), sigma=sigma)
+    assert (a5p.pmax, a5p.pages_contig) == (a5j.pmax, a5j.pages_contig)
+    np.testing.assert_array_equal(a5p.pages.numpy(), np.asarray(a5j.pages))
+    packed = a5p.col_packed is not None
+    assert packed == (a5j.col_packed is not None)
+    for R in (1, 2, 5, 8, 16, 17):
+        assert csr5_kernel.spmm_mode(a5p, R) == _mode_by_hand(a5j, R, packed), (name, R)
+    raw = dataclasses.replace(a5p, col_packed=None)
+    if not a5p.pages_contig:
+        assert {csr5_kernel.spmm_mode(raw, R) for R in (1, 8, 16)} == {"gathered"}
+    elif a5p.pmax <= 3:
+        assert {csr5_kernel.spmm_mode(raw, R) for R in (1, 8, 16)} == {"staged"}
