@@ -12,14 +12,17 @@ in the shape of the reference benchmark driver
    (anonymouslib_cuda.h:211-214)
 4. one checked spmv + the 1%-relative validation (main.cu:361-384)
 5. 50 warmup runs, then ``num_run`` timed runs (main.cu:85-101)
-6. report ms / GB/s / GFLOPS (detail/utils.h:10-20) + %-of-HBM-roofline,
+6. report ms / GB/s / GFLOPS (detail/utils.h:10-20), the share of the
+   card's HBM bandwidth of the bytes the kernel streams (the roofline
+   share) and of getB (the reference's model, which can exceed 100 %),
    and the launches of each kernel during the run
 
 CSR5 SpMV on a matrix beyond the JAX package's VMEM cap (``should_slice``)
 runs on the row-sliced form through K3, as the JAX harness takes its
 ``pallas-sliced`` route (``harness.py:215-234``); ``backend`` forces either
 route. Every format is reported under the same getB bytes model, as the JAX
-package reports them. Float64 values run CSR5 SpMV on kernel K4 with a
+package reports them, and beside it under the bytes its own kernel streams
+(``perf.streamed_bytes``). Float64 values run CSR5 SpMV on kernel K4 with a
 float64 plane; every other format, and SpMM, has no float64 kernel and
 exits saying so. Data goes on the card unless the caller passes
 ``device="cpu"``, where the plain versions run and report a host time
@@ -64,11 +67,13 @@ class BenchResult:
     convert_ms: float
     convert_phases: dict
     spmv_ms: float
-    gbps: float
+    #: getB bytes over the time (the reference's GB/s)
+    getb_gbps: float
     gflops: float
     nnz_per_sec: float
-    #: None on the CPU: a host time has no device roofline
-    pct_of_roofline: Optional[float]
+    #: getB GB/s over the card's HBM bandwidth; None on the CPU, where a
+    #: host time has no device roofline
+    pct_getb_of_hbm: Optional[float]
     check_ok: bool
     max_rel_err: float
     #: the converted matrix, so callers timing extra variants need not
@@ -89,6 +94,11 @@ class BenchResult:
     detail: str = ""
     #: what the CLI decided before the run (auto format, reordering)
     plan: str = ""
+    #: bytes one product streams (``perf.streamed_bytes``)
+    streamed_bytes: int = 0
+    #: streamed bytes over the time, over the card's HBM bandwidth: the
+    #: roofline share; None on the CPU
+    pct_hbm_streamed: Optional[float] = None
 
     def report(self) -> str:
         """The reference's output lines (main.cu:104-106, :361-384)."""
@@ -97,8 +107,9 @@ class BenchResult:
         ph = f" ({ph})" if ph else ""
         roof = (
             "roofline not measured"
-            if self.pct_of_roofline is None
-            else f"{self.pct_of_roofline:.1f}% of HBM roofline"
+            if self.pct_hbm_streamed is None
+            else f"{self.pct_hbm_streamed:.1f}% of HBM roofline ({self.streamed_bytes / 1e6:.1f} MB "
+            f"streamed; getB {self.pct_getb_of_hbm:.1f}% of HBM)"
         )
         fmt = {"csr5": "CSR5", "dia": "DIA", "hyb": "HYB5", "bandblock": "bandblock"}[
             self.format
@@ -113,7 +124,7 @@ class BenchResult:
             f"{self.detail or f'sigma = {self.sigma}'}\n"
             f"CSR->{fmt} time = {self.convert_ms:.3f} ms{ph}\n"
             f"{fmt}-based {op} time = {self.spmv_ms:.4f} ms, "
-            f"{self.gbps:.2f} GB/s, {self.gflops:.2f} GFlops, {roof} "
+            f"{self.getb_gbps:.2f} GB/s, {self.gflops:.2f} GFlops, {roof} "
             f"[{self.backend}, {self.storage}, {self.device}]\n"
             f"Check... {ok} (max rel err {self.max_rel_err:.2e})"
             + (f"\nkernel launches: {runs}" if runs else "")
@@ -200,6 +211,7 @@ def _measure(
         roofline_gbps=perf.device_hbm_gbps(dev_name) if on_card else None,
         num_rhs=num_rhs,
         n=n,
+        streamed=perf.streamed_bytes(mat, xd, num_rhs),
     )
     return BenchResult(
         name=name,
@@ -214,10 +226,12 @@ def _measure(
         convert_ms=convert_ms,
         convert_phases=phases,
         spmv_ms=spmv_ms,
-        gbps=met.gbps,
+        getb_gbps=met.getb_gbps,
         gflops=met.gflops,
         nnz_per_sec=met.nnz_per_sec,
-        pct_of_roofline=met.pct_of_roofline,
+        pct_getb_of_hbm=met.pct_getb_of_hbm,
+        streamed_bytes=met.streamed_bytes,
+        pct_hbm_streamed=met.pct_hbm_streamed,
         check_ok=bool(max_rel <= 0.01),
         max_rel_err=max_rel,
         matrix=mat,

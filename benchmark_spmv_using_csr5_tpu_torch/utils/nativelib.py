@@ -1,9 +1,18 @@
 """ctypes bindings for the native host library (native/csr5_native.cpp).
 
-A copy of the conversion entry points of
+A copy of the entry points of
 ``benchmark_spmv_using_csr5_tpu/utils/nativelib.py``: the JAX package
 cannot be imported without jax and flax, which the port does not depend
-on. It builds the same ``native/`` sources with ``make -C native`` the
+on. Besides the conversion stages it exposes the reference's host
+runtime (``CSR5_cuda/main.cu:157-355``):
+
+- :func:`load_matrix_market`: .mtx -> CSR (int64 row_ptr, int32
+  col_idx, float64 values), the same result as :func:`.mmio.read_mtx_csr`;
+- :func:`csr_spmv_serial`: the serial golden-model SpMV (main.cu:336-355);
+- :func:`tile_partition_pointer`: the tile_ptr binary search
+  (format_cuda.h:21-42).
+
+It builds the same ``native/`` sources with ``make -C native`` the
 first time it is needed, but into its own copy,
 ``benchmark_spmv_using_csr5_tpu_torch/_build/libcsr5native.so``: under an
 ``fcntl`` file lock, into a temporary file that is then renamed over the
@@ -11,9 +20,11 @@ copy. So processes that load the library at once (test workers) never
 rewrite it under one another, and never touch ``native/libcsr5native.so``,
 which the JAX package builds and loads.
 
-Every entry point returns None when the library is unavailable, and the
-conversion then takes its numpy fallback: these are host preprocessing
-stages, not the device path.
+Every conversion entry point returns None when the library is
+unavailable, and the conversion then takes its numpy fallback;
+:func:`load_matrix_market` and :func:`csr_spmv_serial` fall back to
+Python themselves: these are host preprocessing stages, not the device
+path.
 """
 
 from __future__ import annotations
@@ -24,7 +35,7 @@ import os
 import subprocess
 import tempfile
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -115,7 +126,25 @@ def _try_load() -> Optional[ctypes.CDLL]:
             _build_failed = True
             return None
 
+        i64p, i32p = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)
         try:
+            lib.mm_load.restype = ctypes.c_void_p
+            lib.mm_load.argtypes = [ctypes.c_char_p]
+            lib.mm_last_error.restype = ctypes.c_char_p
+            lib.mm_last_error.argtypes = []
+            for fn in (lib.mm_rows, lib.mm_cols, lib.mm_nnz):
+                fn.restype = ctypes.c_int64
+                fn.argtypes = [ctypes.c_void_p]
+            lib.mm_fill.restype = None
+            lib.mm_fill.argtypes = [ctypes.c_void_p, i64p, i32p, ctypes.POINTER(ctypes.c_double)]
+            lib.mm_free.restype = None
+            lib.mm_free.argtypes = [ctypes.c_void_p]
+            for fn, vt in ((lib.csr_spmv_f32, ctypes.c_float), (lib.csr_spmv_f64, ctypes.c_double)):
+                fn.restype = None
+                fn.argtypes = [ctypes.c_int64, i64p, i32p, ctypes.POINTER(vt),
+                               ctypes.POINTER(vt), vt, ctypes.POINTER(vt)]
+            lib.csr5_tile_ptr.restype = None
+            lib.csr5_tile_ptr.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, i64p, i32p]
             lib.mm_write_csr.restype = ctypes.c_int32
             lib.csr5_page_stats.restype = None
             lib.csr5_page_lists.restype = None
@@ -135,6 +164,109 @@ def _try_load() -> Optional[ctypes.CDLL]:
             return None
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """True when the native library loads (building it if necessary)."""
+    return _try_load() is not None
+
+
+def load_matrix_market(
+    path: str,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]:
+    """.mtx -> (row_ptr int64, col_idx int32, values float64, (m, n)), by
+    the native parser (JAX ``nativelib.py:139-176``). Raises ValueError
+    with the parser's message on bad input or a missing file. Without the
+    library it reads with :func:`.mmio.read_mtx_csr` and raises as that
+    does."""
+    lib = _try_load()
+    if lib is None:
+        from . import mmio
+
+        rp, ci, v, shape = mmio.read_mtx_csr(path)
+        return np.asarray(rp, np.int64), np.asarray(ci, np.int32), np.asarray(v, np.float64), shape
+    h = lib.mm_load(os.fspath(path).encode())
+    if not h:
+        raise ValueError(f"mm_load({path}): {lib.mm_last_error().decode(errors='replace')}")
+    try:
+        m, n, nnz = lib.mm_rows(h), lib.mm_cols(h), lib.mm_nnz(h)
+        row_ptr = prefaulted(m + 1, np.int64)
+        col_idx = prefaulted(nnz, np.int32)
+        values = prefaulted(nnz, np.float64)
+        lib.mm_fill(
+            h,
+            row_ptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            col_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            values.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        )
+    finally:
+        lib.mm_free(h)
+    return row_ptr, col_idx, values, (int(m), int(n))
+
+
+def csr_spmv_serial(
+    row_ptr: np.ndarray,
+    col_idx: np.ndarray,
+    values: np.ndarray,
+    x: np.ndarray,
+    alpha: float = 1.0,
+) -> np.ndarray:
+    """The serial CSR SpMV golden model (main.cu:336-355; JAX
+    ``nativelib.py:179-223``): y = alpha * A @ x, each row summed in
+    order in the values' precision (float32 values: float32, else
+    float64), natively when the library loads, else by a Python loop."""
+    m = row_ptr.shape[0] - 1
+    lib = _try_load()
+    if lib is None:
+        y = np.zeros(m, values.dtype)
+        for r in range(m):
+            s, e = int(row_ptr[r]), int(row_ptr[r + 1])
+            y[r] = alpha * (values[s:e] * x[col_idx[s:e]]).sum()
+        return y
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    col_idx = np.ascontiguousarray(col_idx, np.int32)
+    if values.dtype == np.float32:
+        fn, dt, ct = lib.csr_spmv_f32, np.float32, ctypes.c_float
+    else:
+        fn, dt, ct = lib.csr_spmv_f64, np.float64, ctypes.c_double
+    v = np.ascontiguousarray(values, dt)
+    xv = np.ascontiguousarray(x, dt)
+    if xv.shape[0] < int(col_idx.max(initial=-1)) + 1:
+        raise ValueError(f"csr_spmv_serial: x has {xv.shape[0]} entries, a column index reaches "
+                         f"{int(col_idx.max())}")
+    y = prefaulted(m, dt)
+    fn(
+        ctypes.c_int64(m),
+        row_ptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        col_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        v.ctypes.data_as(ctypes.POINTER(ct)),
+        xv.ctypes.data_as(ctypes.POINTER(ct)),
+        ct(alpha),
+        y.ctypes.data_as(ctypes.POINTER(ct)),
+    )
+    return y.astype(values.dtype, copy=False)
+
+
+def tile_partition_pointer(
+    row_ptr: np.ndarray, num_tiles: int, tile_nnz: int
+) -> Optional[np.ndarray]:
+    """tile_ptr (num_tiles + 1,) int32: the row holding nonzero t *
+    tile_nnz, by the native binary search (format_cuda.h:21-42; JAX
+    ``nativelib.py:557``); None when the library is unavailable."""
+    lib = _try_load()
+    if lib is None:
+        return None
+    m = row_ptr.shape[0] - 1
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    out = prefaulted(num_tiles + 1, np.int32)
+    lib.csr5_tile_ptr(
+        ctypes.c_int64(m),
+        ctypes.c_int64(num_tiles),
+        ctypes.c_int64(tile_nnz),
+        row_ptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return out
 
 
 def page_plan(col_flat: np.ndarray, p: int, tile_nnz: int, n_pages: int):

@@ -99,7 +99,21 @@ Phases, each of which must pass:
     banded20M, K1p against K1 on the raw plane and K2p against K2 at
     banded500k sigma 16 (each with its staging mode), with device times by
     torch.profiler, each one's bound from this run's inputs and the
-    cuSPARSE yardstick.
+    cuSPARSE yardstick;
+16. the benchmark suite on the card: ``bench/suite.py`` in a subprocess
+    (so banded20M's 24 GB of host memory is freed after it), its lines
+    relayed; every one of its 17 cases must land with ``check_ok``, the
+    integer-valued ones with max rel err 0.0, df64_banded500k within
+    1e-12 of scipy float64, spmmf8 within 1e-4 (auto) and 1 % (forced
+    bfloat16), and no share of HBM from the streamed bytes above 100 %
+    unless the case's bytes fit in the L2 (``l2_resident``); the suite's
+    launches are added to the kernels line;
+17. checkpoints, the debug printer and the examples on the card: a CSR5
+    matrix with a bfloat16 plane (banded500k) and a DIA matrix
+    (tridiagonal 500k) saved and loaded back onto the card, y through K1
+    and K5 bit-equal to before; ``tile_to_string`` of one tile; both
+    examples at their default sizes (CG's residual, PageRank's mass and
+    their seconds).
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails. The last line of standard output is
@@ -137,6 +151,9 @@ K3_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_kernel.py:247"
 K3_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/csr5_sliced.cu"
 #: every CUDA source of the port, built at once in phase 1
 SOURCES = ("csr5_spmv", "csr5_spmv_f64", "csr5_spmm", "dia_spmv", "bandmm", "csr5_sliced")
+#: the suite's cases whose values are not integers (checked by their own
+#: limits); every other case must be exact
+SUITE_FLOAT_CASES = ("df64_banded500k", "spmmf8_banded500k")
 #: peak rates of one H100 SXM outside the tensor cores (NVIDIA's data
 #: sheet, at the full 700 W): float32 and float64 FLOP/s, for the bounds
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -154,11 +171,6 @@ K4_ULP = 2.0**-53
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nbytes(*tensors) -> int:
-    """Bytes of the given tensors (None counts 0)."""
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def bound_ms(moved: int, flops: float, gbps: float, peak: float):
@@ -232,19 +244,6 @@ def dia_cases(synth, sp, np, chunk_rows):
         a.data = rng.integers(-4, 5, a.nnz).astype(np.float32)
         out.append((name, a))
     return out
-
-
-def hybmix(synth, sp, np, m):
-    """A dense 27-wide band plus 4 scattered ones per row: the JAX bench's
-    hybmix400k (``bench/case_runner.py:749-763``) at m rows."""
-    band = sp.csr_matrix(synth.banded(m, 27, dtype=np.float32))
-    rng = np.random.default_rng(3)
-    nnz = m * 4
-    noise = sp.csr_matrix(
-        (np.ones(nnz, np.float32), (rng.integers(0, m, nnz), rng.integers(0, m, nnz))),
-        shape=(m, m),
-    )
-    return (band + noise).tocsr()
 
 
 def dia_sweep(dev, rng) -> list:
@@ -341,15 +340,14 @@ def format_path(dev, failed):
     import numpy as np
     import torch
 
-    from benchmark_spmv_using_csr5_tpu_torch.bench import cli
+    from benchmark_spmv_using_csr5_tpu_torch.bench import case_runner, cli
     from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel, dia_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.dia import dia_spmm_torch, dia_spmv_torch
     from benchmark_spmv_using_csr5_tpu_torch.utils import synth
-    import scipy.sparse as sp
 
     tri = synth.banded(500_000, 3, dtype=np.float32)
-    mix = hybmix(synth, sp, np, 400_000)
+    mix = case_runner.hybmix(400_000)
     runs = [  # name, format it must run, how
         ("auto_banded500k", "dia", lambda: cli.run(["--synthetic", "banded:500000:27", "--format", "auto"])),
         ("dia_tridiag500k", "dia", lambda: cli.run_matrix(
@@ -642,42 +640,21 @@ def spmm_sweep(dev, rng) -> list:
 
 
 def spmmf8(dev, failed) -> dict:
-    """The JAX bench's spmmf8_banded500k (``case_runner.py:485-561``):
-    decade-spread float values, X^T on [0.5, 1.5], layout "rn", against
-    the float64 oracle."""
-    import numpy as np
-    import scipy.sparse as sp
-    import torch
+    """The suite's spmmf8_banded500k (``bench/case_runner.py``, after the
+    JAX ``case_runner.py:485-561``): decade-spread float values, X^T on
+    [0.5, 1.5], layout "rn", against the float64 oracle; the auto gate
+    must pick a float32 plane within 1e-4 and the forced bfloat16 plane
+    land within 1 %."""
+    from benchmark_spmv_using_csr5_tpu_torch.bench import case_runner
 
-    from benchmark_spmv_using_csr5_tpu_torch import bandmm_spmm, build_bandblock
-    from benchmark_spmv_using_csr5_tpu_torch.bench.harness import rel_err
-    from benchmark_spmv_using_csr5_tpu_torch.ops import bandmm
-    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
-
-    m, R = 500_000, 8
-    a = sp.csr_matrix(synth.banded(m, 27, dtype=np.float32))
-    rng = np.random.default_rng(7)
-    a.data = (rng.uniform(0.1, 1.0, a.nnz) * 10.0 ** rng.integers(-1, 2, a.nnz)).astype(np.float32)
-    xt = rng.uniform(0.5, 1.5, (R, m)).astype(np.float32)
-    y_ref_t = (a.astype(np.float64) @ xt.T.astype(np.float64)).T
-    xtd = torch.from_numpy(xt).to(dev)
-    out = {}
-    t0 = time.perf_counter()
-    bb = build_bandblock(a, device=dev)
-    out["build_ms"] = (time.perf_counter() - t0) * 1e3
-    out["phases"] = dict(bandmm.last_build_phases)
-    out["auto_dtype"] = str(bb.dtype).removeprefix("torch.")
-    out["rel"] = rel_err(bandmm_spmm(bb, xtd, layout="rn"), y_ref_t)
-    del bb
-    bb16 = build_bandblock(a, value_dtype=torch.bfloat16, device=dev)
-    out["rel_bf16"] = rel_err(bandmm_spmm(bb16, xtd, layout="rn", precision="default"), y_ref_t)
-    ok_auto = out["auto_dtype"] == "float32" and out["rel"] <= 1e-4
-    ok16 = out["rel_bf16"] <= 0.01
+    out = case_runner._run_spmmf8_case(dev)
+    ok_auto = out["storage"] == "float32" and out["max_rel_err"] <= 1e-4
+    ok16 = out["bf16_forced_rel_err"] <= 0.01
     failed += ([] if ok_auto else ["spmmf8 auto"]) + ([] if ok16 else ["spmmf8 bf16"])
-    say(f"[spmmf8_banded500k] auto gate -> {out['auto_dtype']} plane + highest: max rel err "
-        f"{out['rel']:.3e} vs float64 (limit 1e-4) {'PASS' if ok_auto else 'FAIL'}; forced "
-        f"bfloat16 plane: {out['rel_bf16']:.3e} (limit 1e-2) {'PASS' if ok16 else 'FAIL'}; "
-        f"build {out['build_ms']:.1f} ms ({out['phases']})")
+    say(f"[spmmf8_banded500k] auto gate -> {out['storage']} plane + highest: max rel err "
+        f"{out['max_rel_err']:.3e} vs float64 (limit 1e-4) {'PASS' if ok_auto else 'FAIL'}; forced "
+        f"bfloat16 plane: {out['bf16_forced_rel_err']:.3e} (limit 1e-2) {'PASS' if ok16 else 'FAIL'}; "
+        f"build {out['convert_ms']:.1f} ms")
     return out
 
 
@@ -686,18 +663,16 @@ def spmm_path(dev, failed, mix_hyb):
     API, with every kernel count set to 0 just before and read just
     after. Returns (results by name, launches, max |kernel - plain|)."""
     import numpy as np
-    import scipy.sparse as sp
     import torch
 
     from benchmark_spmv_using_csr5_tpu_torch import hyb_spmm
-    from benchmark_spmv_using_csr5_tpu_torch.bench import cli, harness
+    from benchmark_spmv_using_csr5_tpu_torch.bench import case_runner, cli, harness
     from benchmark_spmv_using_csr5_tpu_torch.ops import bandmm_kernel, csr5_kernel, dia_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.bandmm import bandmm_spmm_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmm_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.dia import dia_spmm_torch
-    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
 
-    mix = hybmix(synth, sp, np, 400_000)
+    mix = case_runner.hybmix(400_000)
     band = ["--synthetic", "banded:500000:27"]
     runs = [  # name, format it must run, how
         ("spmm8_banded500k", "csr5", lambda: cli.run(band + ["--spmm", "8"])),
@@ -1074,35 +1049,28 @@ def yardstick(dev, card, kind, df64, a64, mats):
         "lib_spmv_f64": device_us_per_call(mm, A64, x64),
         "lib_spmm8_f32": device_us_per_call(mm, A32, X8),
     }
-    # bounds: each input read once, each output written once
+    # bounds: each input read once, each output written once (perf.streamed_bytes)
     f32, f64p = PEAK_FLOPS["float32"], PEAK_FLOPS["float64"]
+    sb = perf.streamed_bytes
     out = {}
     a5, xk1 = mats["csr5_spmv"]
-    out["csr5_spmv"] = bound_ms(
-        nbytes(a5.col_idx_tiles, a5.val_tiles, a5.win_map, a5.tile_ptr, xk1) + a5.m * 4,
-        2 * a5.nnz, gbps, f32) + (lib["spmv_f32"],)
-    out["csr5_spmv_f64"] = bound_ms(
-        nbytes(a64.col_idx_tiles, a64.val_tiles, a64.win_map, a64.tile_ptr, x64) + a64.m * 8,
-        2 * a64.nnz, gbps, f64p) + (lib["spmv_f64"],)
+    out["csr5_spmv"] = bound_ms(sb(a5, xk1), 2 * a5.nnz, gbps, f32) + (lib["spmv_f32"],)
+    out["csr5_spmv_f64"] = bound_ms(sb(a64, x64), 2 * a64.nnz, gbps, f64p) + (lib["spmv_f64"],)
     d, xd = mats["dia_spmv"]
     # the DIA kernels multiply every element of the plane, zeros included
-    out["dia_spmv"] = bound_ms(nbytes(d.data, d.offsets_t, xd) + d.m * 4, 2 * d.data.numel(),
-                               gbps, f32) + (lib["spmv_f32"],)
+    out["dia_spmv"] = bound_ms(sb(d, xd), 2 * d.data.numel(), gbps, f32) + (lib["spmv_f32"],)
     d, X = mats["dia_spmm"]
     R = X.shape[1]
-    out["dia_spmm"] = bound_ms(nbytes(d.data, d.offsets_t, X) + d.m * R * 4,
-                               2 * d.data.numel() * R, gbps, f32) + (lib["spmm8_f32"],)
+    out["dia_spmm"] = bound_ms(sb(d, X, R), 2 * d.data.numel() * R, gbps, f32) + (lib["spmm8_f32"],)
     a5, X = mats["csr5_spmm"]
-    out["csr5_spmm"] = bound_ms(
-        nbytes(a5.col_idx_tiles, a5.val_tiles, a5.win_map, a5.tile_ptr, X) + a5.m * R * 4,
-        2 * a5.nnz * R, gbps, f32) + (lib["spmm8_f32"],)
+    out["csr5_spmm"] = bound_ms(sb(a5, X, R), 2 * a5.nnz * R, gbps, f32) + (lib["spmm8_f32"],)
     bb, X = mats["bandmm_spmm"]
-    out["bandmm_spmm"] = bound_ms(nbytes(bb.dense, bb.c0, X) + bb.m * R * 4,
-                                  2 * bb.dense.numel() * R, gbps, f32) + (lib["spmm8_f32"],)
+    out["bandmm_spmm"] = bound_ms(sb(bb, X, R), 2 * bb.dense.numel() * R, gbps, f32) + (
+        lib["spmm8_f32"],)
     say(f"[df64_banded500k K4, {card}] turns (ms per call, event loop): "
         + ", ".join(f"{k} {v}" for k, v in times.items())
         + f"; K4 {k4_ms:.5f} ms, device {dev_us['k4']} us, bound {out['csr5_spmv_f64'][0] * 1e3:.2f} us "
-        f"({nbytes(a64.col_idx_tiles, a64.val_tiles, a64.win_map, a64.tile_ptr) / 1e6:.1f} MB planes "
+        f"({perf.plane_bytes(a64) / 1e6:.1f} MB planes "
         f"+ x, y); plain {k4_plain_ms:.4f} ms; cuSPARSE float64 {lib_f64_ms:.5f} ms, device "
         f"{dev_us['lib_spmv_f64']} us")
     dev_ratio = (dev_us["k4"] / dev_us["lib_spmv_f64"]
@@ -1442,10 +1410,7 @@ def large_turns(dev, card, kind, res, a20, band500k):
             times[k].append(perf.benchmark(fn, mat, x, device=dev, warmup=3, num_run=n))
         return times, {k: sum(v) / len(v) for k, v in times.items()}
 
-    def planes(a5):
-        col = (a5.col_packed, a5.pages) if a5.col_packed is not None else (a5.col_idx_tiles,)
-        return nbytes(*col, a5.val_tiles, a5.win_map, a5.tile_ptr)
-
+    planes, sb = perf.plane_bytes, perf.streamed_bytes
     out = {}
     # --- banded20M: K3 over the slices against one K1 pass ---------------------
     sl, whole = res["banded20M"].matrix, res["banded20M_whole"].matrix
@@ -1466,15 +1431,15 @@ def large_turns(dev, card, kind, res, a20, band500k):
     lib20_us = device_us_per_call(mm, A20, x20, n=20)
     del A20
     torch.cuda.empty_cache()
-    b3 = bound_ms(sum(planes(s) for s in sl.slices) + nbytes(x20) + sl.m * 4, 2 * sl.nnz, gbps, f32)
-    b1 = bound_ms(planes(whole) + nbytes(x20) + whole.m * 4, 2 * whole.nnz, gbps, f32)
+    b3 = bound_ms(sb(sl, x20), 2 * sl.nnz, gbps, f32)
+    b1 = bound_ms(sb(whole, x20), 2 * whole.nnz, gbps, f32)
     out["csr5_sliced"] = (t["k3"], t["k3_plain"], *b3, lib20)
     say(f"[banded20M K3 vs K1, {card}] turns (ms per call, event loop): "
         + ", ".join(f"{k} {v}" for k, v in times.items()))
     say(f"[banded20M K3 vs K1] K3 ({sl.num_slices} slices, one launch) {t['k3']:.5f} ms, device "
         f"{dev_us['k3']} us; whole-matrix K1 {t['k1_whole']:.5f} ms, device {dev_us['k1_whole']} us; "
         f"K3/K1 = {t['k3'] / t['k1_whole']:.4f}; bound K3 {b3[0] * 1e3:.1f} us ({b3[1]}, "
-        f"{sum(planes(s) for s in sl.slices) / 1e9:.3f} GB planes + x, y), K1 {b1[0] * 1e3:.1f} us "
+        f"{planes(sl) / 1e9:.3f} GB planes + x, y), K1 {b1[0] * 1e3:.1f} us "
         f"({planes(whole) / 1e9:.3f} GB planes + x, y); plain K3 {t['k3_plain']:.3f} ms, plain K1 "
         f"{t['k1_whole_plain']:.3f} ms; cuSPARSE {lib20:.5f} ms (device {lib20_us} us) [{card}]")
 
@@ -1501,10 +1466,10 @@ def large_turns(dev, card, kind, res, a20, band500k):
     A = library_csr(band500k, np.float32, dev)
     lib1 = perf.benchmark(mm, A, x, device=dev, num_run=100)
     lib8 = perf.benchmark(mm, A, x8, device=dev, num_run=100)
-    bp = bound_ms(planes(a5p) + nbytes(x) + a5p.m * 4, 2 * a5p.nnz, gbps, f32)
-    br = bound_ms(planes(a5r) + nbytes(x) + a5r.m * 4, 2 * a5r.nnz, gbps, f32)
-    b2p = bound_ms(planes(a5p) + nbytes(x8) + a5p.m * 32, 16 * a5p.nnz, gbps, f32)
-    b2r = bound_ms(planes(a5r) + nbytes(x8) + a5r.m * 32, 16 * a5r.nnz, gbps, f32)
+    bp = bound_ms(sb(a5p, x), 2 * a5p.nnz, gbps, f32)
+    br = bound_ms(sb(a5r, x), 2 * a5r.nnz, gbps, f32)
+    b2p = bound_ms(sb(a5p, x8, 8), 16 * a5p.nnz, gbps, f32)
+    b2r = bound_ms(sb(a5r, x8, 8), 16 * a5r.nnz, gbps, f32)
     out["csr5_spmv_packed"] = (t["k1p"], t["k1p_plain"], *bp, lib1)
     out["csr5_spmm_packed"] = (t["k2p"], t["k2p_plain"], *b2p, lib8)
     say(f"[banded500k sigma 16 K1p vs K1, K2p vs K2, {card}] turns (ms per call, event loop): "
@@ -1519,6 +1484,135 @@ def large_turns(dev, card, kind, res, a20, band500k):
         f"cuSPARSE SpMV {lib1:.5f}, SpMM R=8 {lib8:.5f} ms; pmax {a5p.pmax}, tiles {a5p.num_tiles} "
         f"[{card}]")
     return out
+
+
+def suite_phase(failed) -> dict:
+    """Phase 16: the suite in a subprocess, its standard output relayed and
+    its record checked case by case. Returns its launches by kernel."""
+    from benchmark_spmv_using_csr5_tpu_torch.bench.suite import CASES
+
+    out_path = os.path.join(ROOT, "chiprun_out", "bench_torch_full.json")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "benchmark_spmv_using_csr5_tpu_torch.bench.suite", "--out", out_path],
+        cwd=ROOT, stdout=subprocess.PIPE, text=True,
+    )
+    cases = {}
+    for line in proc.stdout:
+        say(f"[suite] {line.rstrip()}")
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if "name" in rec:
+            cases[rec["name"]] = rec
+    rc = proc.wait()
+    launches = {}
+    for name in CASES:
+        r = cases.get(name)
+        errs = []
+        if r is None or "error" in r:
+            errs.append("did not land" if r is None else r["error"])
+        else:
+            rel = r.get("max_rel_err")
+            if not r.get("check_ok"):
+                errs.append("check_ok false")
+            if name == "df64_banded500k" and not rel <= 1e-12:
+                errs.append(f"max rel err {rel} > 1e-12")
+            if name == "spmmf8_banded500k" and not (rel <= 1e-4 and r["bf16_forced_rel_err"] <= 1e-2):
+                errs.append(f"rel {rel} (1e-4), forced bfloat16 {r['bf16_forced_rel_err']} (1e-2)")
+            if name not in SUITE_FLOAT_CASES and rel != 0.0:
+                errs.append(f"max rel err {rel} on integer data")
+            pct = r.get("pct_hbm_streamed")
+            if pct is None or (pct > 100.0 and not r.get("l2_resident")):
+                errs.append(f"{pct} % of HBM from the streamed bytes")
+            for k, v in r.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+        failed += [f"suite {name}: {e}" for e in errs]
+        if errs:
+            say(f"[suite {name}] FAIL {errs}")
+    if rc != 0:
+        failed.append(f"suite exit code {rc}")
+    say(f"[suite] {len(cases)} of {len(CASES)} cases in {time.perf_counter() - t0:.1f} s, exit code "
+        f"{rc}; launches {launches}; record {os.path.relpath(out_path, ROOT)}")
+    return launches
+
+
+def _load_example(name: str):
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def persistence_phase(dev, failed) -> int:
+    """Phase 17: a CSR5 (bfloat16 plane, banded500k) and a DIA
+    (tridiagonal 500k) checkpoint saved from the card and loaded back onto
+    it, y through K1 and K5 bit-equal to before; ``tile_to_string`` of one
+    tile; both examples at their default sizes. Returns the K1 launches
+    of the examples' run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch import build_csr5, build_dia
+    from benchmark_spmv_using_csr5_tpu_torch.models.formats import PLANE_FIELDS
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel, dia_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.utils import checkpoint, debug, synth
+
+    band = synth.banded(500_000, 27, dtype=np.float32)
+    tri = synth.banded(500_000, 3, dtype=np.float32)
+    x = torch.from_numpy(np.random.default_rng(0).integers(1, 10, 500_000).astype(np.float32)).to(dev)
+    with tempfile.TemporaryDirectory() as d:
+        a5 = build_csr5(band, value_dtype=torch.bfloat16, device=dev)
+        y0 = csr5_kernel.csr5_spmv_cuda(a5, x)
+        p = os.path.join(d, "banded500k.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_csr5(p, a5)
+        t1 = time.perf_counter()
+        b5 = checkpoint.load_csr5(p, device=dev)
+        t2 = time.perf_counter()
+        same = all(
+            (getattr(a5, f) is None and getattr(b5, f) is None)
+            or torch.equal(getattr(a5, f), getattr(b5, f)) for f in PLANE_FIELDS
+        )
+        ok = (same and b5.val_tiles.dtype == torch.bfloat16 and b5.device == a5.device
+              and torch.equal(csr5_kernel.csr5_spmv_cuda(b5, x), y0))
+        failed += [] if ok else ["csr5 checkpoint"]
+        say(f"[checkpoint CSR5 banded500k, bfloat16 plane] {'PASS' if ok else 'FAIL'}: "
+            f"{os.path.getsize(p) / 1e6:.1f} MB file, save {t1 - t0:.2f} s, load {t2 - t1:.2f} s, "
+            f"planes equal {same}, K1 y bit-equal to before")
+        say("[tile_to_string, banded500k tile 1]\n" + debug.tile_to_string(b5, 1))
+        del a5, b5
+
+        dm = build_dia(tri, device=dev)
+        y0 = dia_kernel.dia_spmv_cuda(dm, x)
+        p = os.path.join(d, "tridiag500k.npz")
+        checkpoint.save_dia(p, dm)
+        back = checkpoint.load_dia(p, device=dev)
+        ok = (torch.equal(back.data, dm.data) and back.offsets == dm.offsets
+              and torch.equal(back.offsets_t, dm.offsets_t)
+              and torch.equal(dia_kernel.dia_spmv_cuda(back, x), y0))
+        failed += [] if ok else ["dia checkpoint"]
+        say(f"[checkpoint DIA tridiagonal 500k] {'PASS' if ok else 'FAIL'}: {back.ndiag} diagonals, "
+            f"offsets_t rebuilt, K5 y bit-equal to before")
+
+    csr5_kernel.launches = 0
+    cg = _load_example("poisson_cg_torch").main([])
+    pr = _load_example("pagerank_torch").main([])
+    torch.cuda.synchronize()
+    k1 = csr5_kernel.launches
+    ok = (np.isfinite(cg["rel_residual"]) and cg["rel_residual"] < 1.0
+          and abs(pr["mass"] - 1.0) <= 1e-5 and k1 > 0)
+    failed += [] if ok else ["examples"]
+    say(f"[examples] {'PASS' if ok else 'FAIL'}: poisson_cg_torch |r|/|b| {cg['rel_residual']:.3e} in "
+        f"{cg['seconds']:.3f} s; pagerank_torch mass {pr['mass']:.7f} in {pr['seconds']:.3f} s; "
+        f"{k1} K1 launches")
+    return k1
 
 
 def main() -> int:
@@ -1669,10 +1763,12 @@ def main() -> int:
         )
     k_ms = sum(times["cuda"]) / 2
     p_ms = sum(times["plain"]) / 2
-    met = perf.spmv_metrics(big.m, big.nnz, k_ms, 4, roofline_gbps=perf.device_hbm_gbps(kind))
+    met = perf.spmv_metrics(big.m, big.nnz, k_ms, 4, roofline_gbps=perf.device_hbm_gbps(kind),
+                            streamed=perf.streamed_bytes(big.matrix, xs[big.name]))
     say(
-        f"[{big.name}] K1 {k_ms:.4f} ms ({times['cuda']}), {met.gbps:.2f} GB/s, "
-        f"{met.gflops:.2f} GFlops, {met.pct_of_roofline:.1f}% of {met.roofline_gbps:.0f} GB/s; "
+        f"[{big.name}] K1 {k_ms:.4f} ms ({times['cuda']}), {met.getb_gbps:.2f} GB/s (getB), "
+        f"{met.gflops:.2f} GFlops, {met.pct_hbm_streamed:.1f}% of {met.roofline_gbps:.0f} GB/s "
+        f"({met.streamed_bytes / 1e6:.1f} MB streamed; getB {met.pct_getb_of_hbm:.1f}%); "
         f"plain torch {p_ms:.4f} ms ({times['plain']}); "
         f"storage {big.storage}, peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
         f"[{card}]"
@@ -1755,24 +1851,38 @@ def main() -> int:
     # --- 15. K3 vs one K1 pass at banded20M, K1p vs K1 and K2p vs K2 -----------
     band500k = sp.csr_matrix(synth.banded(500_000, 27)).astype(np.float32)
     lt = large_turns(dev, card, kind, large, a20, band500k)
-    del large, a20
+    del large, a20, band500k
+    torch.cuda.empty_cache()
+
+    # --- 16. the benchmark suite on the card, in a subprocess -----------------
+    suite_launches = suite_phase(failed)
+    if failed:
+        print(f"chip_smoke: the suite failed: {failed}", file=sys.stderr)
+        return 1
+
+    # --- 17. checkpoints, the debug printer and the examples -------------------
+    example_k1 = persistence_phase(dev, failed)
+    if failed:
+        print(f"chip_smoke: checkpoints/examples failed: {failed}", file=sys.stderr)
+        return 1
 
     def entry(name, source, replaces, launches_, err, ms, plain):
         b_ms, b_by, lib_ms = bounds[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                "launches": launches_ + suite_launches.get(name, 0), "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
     def large_entry(name, source, replaces):
         ms, plain, b_ms, b_by, lib_ms = lt[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": large_launches[name], "max_abs_err": large_err[name], "ms": ms,
-                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                "launches": large_launches[name] + suite_launches.get(name, 0),
+                "max_abs_err": large_err[name], "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}
 
     say(json.dumps({"kernels": [
         entry("csr5_spmv", K1_SOURCE, K1_REPLACES,
               launches + fmt_launches["csr5_spmv"] + f64_launches["csr5_spmv"]
-              + large_launches["csr5_spmv"],
+              + large_launches["csr5_spmv"] + example_k1,
               max(max_abs, fmt_err["csr5_spmv"], large_err["csr5_spmv"]), k_ms, p_ms),
         large_entry("csr5_spmv_packed", K1_SOURCE, K1P_REPLACES),
         large_entry("csr5_spmm_packed", K2_SOURCE, K1P_REPLACES),

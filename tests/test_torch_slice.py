@@ -40,7 +40,7 @@ def test_slice_matches_jax_pipeline(argv):
     res = cli.run(argv + ["--num-run", "2", "--backend", "torch"])
     assert res.check_ok and res.max_rel_err == 0.0
     assert res.backend == "torch" and res.device == "cpu"
-    assert res.pct_of_roofline is None  # a host time has no device roofline
+    assert res.pct_hbm_streamed is None and res.pct_getb_of_hbm is None  # a host time has no roofline
     assert "roofline not measured" in res.report()
 
     rp, ci, v, shape, name = jcli.load_matrix(
