@@ -17,7 +17,10 @@ Case families:
   native writer and read back with the native parser;
 - DIA (``dia_tridiag500k``, ``dia_banded2M``), HYB5 (``hybmix400k``,
   against pure CSR5) and band-block SpMM (``spmm16_banded500k``,
-  ``spmmf8_banded500k``).
+  ``spmmf8_banded500k``);
+- ``dist1_banded500k``: the distributed SpMV at D = 1 in a process group
+  of its own (NCCL on the card), against K1 on the same build and on
+  aligned window maps.
 
 Every case records its time, the share of the card's HBM bandwidth of the
 bytes its kernel streams (``pct_hbm_streamed``, the roofline share) and of
@@ -27,8 +30,6 @@ the 50 MB L2, so the timed loop, which does not flush it, may read them
 from there: ``l2_flushed`` is false), and the launches of each kernel.
 Every number a case reports is checked, and each check gates
 ``check_ok``: a candidate that fails its check fails the case.
-
-Left out: ``dist1_banded500k``, until distribution is ported.
 """
 
 from __future__ import annotations
@@ -497,6 +498,65 @@ def _run_hyb_case(device=DEFAULT_DEVICE, m: int = 400_000, num_run: int = 100) -
     return out
 
 
+def _run_dist1_case(device=DEFAULT_DEVICE, m: int = 500_000, num_run: int = 100) -> dict:
+    """The distributed SpMV at D = 1 (``case_runner.py:564-643``): the
+    shard build, the exchange (an all-gather over NCCL on the card) and
+    the local K1 of ``parallel/distributed.py``, in a process group the
+    case opens and destroys, against K1 on the same float32 build
+    (``single_chip_ms``, ``overhead_pct``) and K1 on aligned window maps,
+    the mode of every shard at D > 1 (``aligned_shard_ms``). Every check
+    gates ``check_ok``, the aligned one included (the JAX case leaves it
+    out, ``case_runner.py:630``). The timed loop is the rank-local form:
+    x shard in, y block out."""
+    from ..parallel import distributed as pdist
+    from ..parallel.launch import single_rank_group
+
+    a = synth.banded(m, 27, dtype=np.float32)
+    host = (a.indptr, a.indices, a.data, a.shape)
+    x = np.random.default_rng(0).integers(1, 10, m).astype(np.float32)
+    xd = torch.from_numpy(x).to(device)
+    y_ref = a @ x
+    a5 = build_csr5(host, device=device)
+    ms_single, rel_single = _check_time(csr5_spmv, a5, xd, y_ref, num_run, device)
+    del a5
+    t0 = time.perf_counter()
+    with single_rank_group(device):
+        mesh = pdist.make_mesh(1, device)
+        da = pdist.distribute_csr(*host, mesh)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        rel_global = harness.rel_err(pdist.distributed_spmv(da, xd, mesh), y_ref)
+        xs = pdist.shard_of(xd, da.n, mesh)
+        ms, rel = _check_time(lambda d_, x_: pdist.distributed_spmv_local(d_, x_, mesh), da, xs,
+                              y_ref, num_run, device)
+        backend = mesh.backend
+    a5_al = build_csr5(host, win_mode="aligned", device=device)
+    ms_al, rel_al = _check_time(csr5_spmv, a5_al, xd, y_ref, num_run, device)
+    out = {"name": "dist1_banded500k"}
+    if ms is not None:
+        out.update(_metrics(device, da.local, xs, 1, a.nnz, ms))
+    aligned_ok = ms_al is not None
+    out.update(
+        single_chip_ms=ms_single,
+        single_chip_check_ok=ms_single is not None,
+        overhead_pct=100.0 * (ms / ms_single - 1.0) if ms and ms_single else None,
+        aligned_shard_ms=ms_al,
+        aligned_rel_err=rel_al,
+        aligned_check_ok=aligned_ok,
+        check_ok=bool(ms is not None and rel_global <= CHECK_RTOL and aligned_ok
+                      and ms_single is not None),
+        max_rel_err=max(rel, rel_global, rel_single),
+        storage=_dtype_name(da.local.val_tiles),
+        backend=f"dist1-{backend}",
+        convert_route=da.convert_route,
+        x_bytes_exchanged=da.x_bytes_exchanged(),
+        convert_ms=build_ms,
+    )
+    print(f"[dist1_banded500k] distributed (D=1, {backend}) {ms} ms against K1 {ms_single} ms "
+          f"(overhead {out['overhead_pct']} %), aligned maps {ms_al} ms; rel {rel:.1e}",
+          file=sys.stderr)
+    return out
+
+
 def run_one(name: str, device=DEFAULT_DEVICE, data_dir: str = DATA_DIR) -> dict:
     """Run the case ``name`` on ``device`` (default: the card; raises
     without one) and return its record, with the launches of each kernel
@@ -509,6 +569,7 @@ def run_one(name: str, device=DEFAULT_DEVICE, data_dir: str = DATA_DIR) -> dict:
         "spmm16_banded500k": _run_spmm16_case,
         "spmmf8_banded500k": _run_spmmf8_case,
         "hybmix400k": _run_hyb_case,
+        "dist1_banded500k": _run_dist1_case,
     }
     if name in special:
         out = special[name](device)

@@ -2,9 +2,8 @@
 
     python -m benchmark_spmv_using_csr5_tpu_torch.bench.suite [NAMES...] [--out PATH]
 
-Runs the cases of ``bench.py`` (``bench.py:53-72``) in its order, less
-``dist1_banded500k`` (distribution is not ported yet), in one process on
-the card (``--device cpu`` runs the plain versions), through
+Runs the cases of ``bench.py`` (``bench.py:53-72``) in its order, in one
+process on the card (``--device cpu`` runs the plain versions), through
 :mod:`.case_runner`. It builds the native host library first and grows
 the conversion arena to the largest case. Each case prints one JSON line
 (flushed) with its numbers, checks and kernel launches; a case that
@@ -39,7 +38,7 @@ from . import case_runner
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-#: bench.py's cases in its priority order, less dist1_banded500k
+#: bench.py's cases in its priority order
 CASES = [
     "banded500k",
     "dia_tridiag500k",
@@ -51,6 +50,7 @@ CASES = [
     "mtx_powlaw300k",
     "scatband300k",
     "powerlaw200k",
+    "dist1_banded500k",
     "fem3block600k",
     "dia_banded2M",
     "spmm8_banded500k",

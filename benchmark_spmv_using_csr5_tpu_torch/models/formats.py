@@ -120,10 +120,15 @@ class CSR5Matrix:
     ``format_cuda.h:525-744``). ``win_map[t, d]`` packs the in-tile
     position of the last element of window slot d's row as
     ``sub | lane << 16`` with flag bits 23 (first-row slot) and 24
-    (d >= tile_ptr[t] % 128). The port always keeps ``col_idx_tiles``;
-    where ``col_packed`` exists (sigma % 16 == 0, pmax <= 512) the kernels
-    stream it with ``pages`` instead (K1p, K2p), as the JAX kernel does.
-    ``page_cnt`` is the JAX package's TPU gather plan, kept for parity.
+    (d >= tile_ptr[t] % 128). Where ``col_packed`` exists (sigma % 16 ==
+    0, pmax <= 512) the kernels stream it with ``pages`` instead of
+    ``col_idx_tiles`` (K1p, K2p), as the JAX kernel does, and the
+    conversion drops the raw plane (None) unless asked to keep it or the
+    value plane is float64 (K4 reads raw columns): read the columns with
+    :func:`col_tiles_of`. ``empty_offset`` is the ragged table of the
+    host conversion, or, from the on-card conversion, ``eo_width`` slots
+    per dirty tile. ``page_cnt`` is the JAX package's TPU gather plan,
+    kept for parity.
     """
 
     shape: Tuple[int, int]
@@ -206,15 +211,43 @@ def col_tiles_from_packed(a5: CSR5Matrix) -> torch.Tensor:
     kernels K1p and K2p in plain torch. Word (t, s, l) holds the code of
     element (t, s, l) in its low half and of (t, s + sigma/2, l) in its
     high half."""
-    cp = a5.col_packed  # (p, sigma/2, omega) int32, two codes per word
-    if cp is None:
+    if a5.col_packed is None:
         raise ValueError("the matrix has no col_packed plane (sigma % 16 != 0 or pmax > 512)")
+    return decode_packed_codes(a5.col_packed, a5.pages)
+
+
+#: tiles decoded at a time by :func:`decode_packed_codes` (bounds its
+#: int64 gather index: 2**24 elements, 128 MB)
+_DECODE_ELEMS = 2**24
+
+
+def decode_packed_codes(cp: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """(p, 2 * s2, omega) int32 columns from (p, s2, omega) packed words
+    and the (p, pmax) page lists, on their device: the low half of word
+    (t, s, l) is element (t, s, l), the high half (t, s + s2, l); a code
+    is ``lane | local_page << 7`` and the column ``pages[t][local_page] *
+    128 + lane``. Decodes a bounded number of tiles at a time, so a 560M-
+    nonzero plane needs no nnz-sized int64 index on the card."""
     p, s2, om = cp.shape
-    codes = torch.cat([cp & 0xFFFF, (cp >> 16) & 0xFFFF], dim=1)
-    lane = codes & 127
-    local = (codes >> 7).reshape(p, 2 * s2 * om).long()
-    page = torch.gather(a5.pages, 1, local).reshape(p, 2 * s2, om)
-    return page * 128 + lane
+    out = torch.empty((p, 2 * s2, om), dtype=torch.int32, device=cp.device)
+    step = max(1, _DECODE_ELEMS // max(2 * s2 * om, 1))
+    for t0 in range(0, p, step):
+        c = cp[t0 : t0 + step]
+        codes = torch.cat([c & 0xFFFF, (c >> 16) & 0xFFFF], dim=1)
+        local = (codes >> 7).reshape(c.shape[0], -1).long()
+        page = torch.gather(pages[t0 : t0 + step], 1, local).reshape(codes.shape)
+        out[t0 : t0 + step] = page * 128 + (codes & 127)
+    return out
+
+
+def with_k4_columns(a5: CSR5Matrix) -> CSR5Matrix:
+    """``a5``, its raw column plane decoded from ``col_packed`` in place
+    when the value plane is float64 and the plane is missing (a matrix
+    saved or carried without it): K4 reads raw columns. Other matrices
+    are returned as they are."""
+    if a5.col_idx_tiles is None and a5.val_tiles.dtype == torch.float64:
+        a5.col_idx_tiles = col_tiles_of(a5).contiguous()
+    return a5
 
 
 def csr_from_numpy(
@@ -269,9 +302,9 @@ def csr5_from_numpy(planes: dict, static: dict, device=DEFAULT_DEVICE) -> CSR5Ma
     ``value_dtype`` (``"bfloat16"``/``"float32"``) that the value plane is
     cast to. A matrix the JAX package converted crosses as
     ``{f: np.asarray(getattr(a5, f))}``; a float64 value plane (the JAX
-    package under x64) stays float64. A missing raw column plane is
-    decoded from ``col_packed``: the port's kernel streams raw columns.
-    The planes go to ``device`` (default: the card).
+    package under x64) stays float64, its missing raw column plane
+    decoded from ``col_packed`` for K4 (:func:`with_k4_columns`). The
+    planes go to ``device`` (default: the card).
     """
     device = resolve_device(device, "csr5_from_numpy")
     cfg = static["config"]
@@ -287,10 +320,7 @@ def csr5_from_numpy(planes: dict, static: dict, device=DEFAULT_DEVICE) -> CSR5Ma
     vdt = static.get("value_dtype")
     if vdt is not None:
         tensors["val_tiles"] = tensors["val_tiles"].to(getattr(torch, vdt))
-    a5 = CSR5Matrix(config=cfg, **kw, **tensors)
-    if a5.col_idx_tiles is None:
-        a5.col_idx_tiles = col_tiles_of(a5).contiguous()
-    return a5
+    return with_k4_columns(CSR5Matrix(config=cfg, **kw, **tensors))
 
 
 def csr5_from_df64(planes: dict, lo_plane, static: dict, device=DEFAULT_DEVICE) -> CSR5Matrix:

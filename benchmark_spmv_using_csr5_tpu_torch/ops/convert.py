@@ -7,8 +7,15 @@ maps, tile transpose) are the JAX package's numpy and native code,
 copied as they are, so every plane matches the JAX one element for
 element. What differs is the value dtype and the upload:
 
-- the raw int32 column plane is always kept (the JAX package's
-  ``keep_raw_cols=True``): the port's kernel streams raw columns;
+- ``keep_raw_cols=False`` (the JAX default) drops the raw int32 column
+  plane where ``col_packed`` exists on a float32 or bfloat16 plane: K1p
+  and K2p stream the packed one, 4 B/nnz less on the card. A float64
+  plane keeps it (K4 reads raw columns; JAX ``csr5_df64.py:145-147``);
+- at :data:`DEVICE_DECODE_MIN_NNZ` padded nonzeros and more, a sigma %
+  16 != 0 conversion for the card uploads the 2 B/nnz packed codes and
+  rebuilds the int32 plane there (JAX ``convert.py:576-614``), under the
+  JAX gate plus ``sigma % 2 == 0`` (:func:`decode_on_card`): an odd sigma
+  would lose a row of each pair (s, s + sigma/2);
 - float64 values narrow to float32 unless ``value_dtype=torch.float64``
   keeps the float64 plane that kernel K4 streams (the JAX x64 plane; its
   float32 rounding is the JAX df64 hi plane);
@@ -19,6 +26,10 @@ element. What differs is the value dtype and the upload:
   reused arena of :mod:`..utils.hostmem`;
 - :func:`build_csr5_autotuned` decides its sigma from the host plan, so
   a re-tune transposes and uploads once.
+
+:func:`tile_partition_pointer` and :func:`tile_dirty_flags` are the JAX
+package's two tensor stages (``convert.py:74-101``), which the on-card
+conversion (:mod:`.convert_device`) runs.
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ import numpy as np
 import torch
 
 from ..config import AUTO_TUNED_SIGMA, DEFAULT_DEVICE, CSR5Config, compute_sigma, resolve_device
-from ..models.formats import CSR5Matrix, CSRMatrix, col_tiles_of
+from ..models.formats import CSR5Matrix, CSRMatrix, col_tiles_of, decode_packed_codes
 from ..utils import nativelib, progress
 from ..utils.hostmem import arena_take
 
@@ -39,6 +50,10 @@ from ..utils.hostmem import arena_take
 PAGE_COLS = 128
 #: max page span for the JAX kernel's contiguous-slab gather mode
 CONTIG_PAGE_CAP = 8
+#: from this many padded nonzeros, a sigma % 16 != 0 conversion for the
+#: card uploads the 2 B/nnz packed codes and rebuilds the int32 column
+#: plane on the card (the JAX package's threshold, ``convert.py:66``)
+DEVICE_DECODE_MIN_NNZ = 30_000_000
 
 #: phase timings (ms) of the most recent build_csr5 call -- the
 #: malloc/tile_ptr/tile_desc/transpose breakdown the reference prints
@@ -51,6 +66,46 @@ def _pow2_at_least(x: int, lo: int) -> int:
     while v < x:
         v *= 2
     return v
+
+
+def tile_partition_pointer(row_ptr: torch.Tensor, num_tiles: int, tile_nnz: int) -> torch.Tensor:
+    """(num_tiles + 1,) int32: the row holding nonzero t * tile_nnz, on
+    ``row_ptr``'s device (``generate_partition_pointer_s1``,
+    ``format_cuda.h:21-42``; JAX ``convert.py:74-83``). Searches in int64,
+    so row pointers past 2**31 nonzeros stay exact."""
+    bounds = torch.arange(num_tiles + 1, dtype=torch.int64, device=row_ptr.device) * tile_nnz
+    idx = torch.searchsorted(row_ptr.to(torch.int64), bounds, right=True) - 1
+    return idx.clamp_(0, row_ptr.shape[0] - 1).to(torch.int32)
+
+
+def tile_dirty_flags(row_ptr: torch.Tensor, tile_ptr: torch.Tensor) -> torch.Tensor:
+    """(p,) bool: the rows ``[tile_ptr[t] + 1, min(tile_ptr[t + 1], m - 1)]``
+    hold an empty row (``generate_partition_pointer_s2``,
+    ``format_cuda.h:44-95``; JAX ``convert.py:86-101``), the same clamped
+    range as the host conversion."""
+    m = row_ptr.shape[0] - 1
+    empty = (row_ptr[1:] == row_ptr[:-1]).to(torch.int64)
+    e_prefix = torch.cat([empty.new_zeros(1), torch.cumsum(empty, 0)])
+    start = tile_ptr[:-1].long()
+    stop = torch.clamp(tile_ptr[1:].long(), max=m - 1)
+    return (e_prefix[stop + 1] - e_prefix[torch.clamp(start + 1, max=m)]) > 0
+
+
+def decode_on_card(nnz_pad: int, sigma: int, keep_raw_cols: bool, device) -> bool:
+    """True when a conversion for ``device`` uploads the 2 B/nnz packed
+    codes instead of the 4 B/nnz raw columns and rebuilds the int32 plane
+    there (given a page plan of at most 512 pages and the native packer):
+    the JAX gate (``convert.py:413-416``, ``:576-581``: on the accelerator,
+    at :data:`DEVICE_DECODE_MIN_NNZ` and more, sigma % 16 != 0, raw columns
+    not asked for) and ``sigma % 2 == 0``, since the packed word pairs rows
+    s and s + sigma // 2 and an odd sigma leaves its last row out."""
+    return (
+        torch.device(device).type == "cuda"
+        and not keep_raw_cols
+        and sigma % 16 != 0
+        and sigma % 2 == 0
+        and nnz_pad >= DEVICE_DECODE_MIN_NNZ
+    )
 
 
 def _descriptor(
@@ -183,11 +238,12 @@ def _config_for(m: int, nnz: int, config: Optional[CSR5Config], sigma: int) -> C
 
 
 def _host_plan(row_ptr, col_idx, values, m: int, n: int, config: CSR5Config, win_mode: str,
-               ph: _Phases) -> SimpleNamespace:
+               ph: _Phases, keep_raw_cols: bool, device) -> SimpleNamespace:
     """The host stages of the conversion, before the tile transpose and
     the upload: tile pointers, dirty bits, descriptor, empty-row offsets,
-    the JAX gather plan, packed column codes and window maps. The planes
-    live in the host arena until the next conversion."""
+    the JAX gather plan, packed column codes (for ``col_packed``, or for
+    the upload of :func:`decode_on_card`) and window maps. The planes live
+    in the host arena until the next conversion."""
     nnz = int(values.shape[0])
     omega, sig = config.omega, config.sigma
     T = config.tile_nnz
@@ -294,9 +350,11 @@ def _host_plan(row_ptr, col_idx, values, m: int, n: int, config: CSR5Config, win
     # --- stream-compressed column plane (JAX kernel; sigma % 16 == 0) ---
     # uint16 code "lane(7b) | local_page(<=9b)" per element, pairs of
     # sigma-rows combined into one int32 word. Valid while pmax <= 512.
+    # Other sigmas build the codes only to upload them (decode_on_card).
     stream_packed = sig % 16 == 0
+    decode = decode_on_card(nnz_pad, sig, keep_raw_cols, device)
     col16 = None
-    if pmax <= 512 and stream_packed:
+    if pmax <= 512 and (stream_packed or decode):
         if pages_contig:
             cf2 = col_flat.reshape(p_pad, T)
             t1 = arena_take((p_pad, T), np.int32, "cv:c16a", zero=False)
@@ -312,8 +370,10 @@ def _host_plan(row_ptr, col_idx, values, m: int, n: int, config: CSR5Config, win
             col16 = nativelib.col_local_packed(
                 col_flat, p_pad, T, page_sentinel + 1, arena="cv:col16"
             )
-            if col16 is None:
+            if col16 is None and stream_packed:
                 # numpy fallback: rank pages within each tile via argsort
+                # (not for the upload alone: its nnz-scale passes would eat
+                # the saving)
                 pg2 = (col_flat >> 7).reshape(p_pad, T)
                 order = np.argsort(pg2, axis=1, kind="stable")
                 ps = np.take_along_axis(pg2, order, axis=1)
@@ -382,13 +442,16 @@ def _host_plan(row_ptr, col_idx, values, m: int, n: int, config: CSR5Config, win
         y_offset=y_offset, seg_offset=seg_offset, eo_ptr=eo_ptr, eo=eo,
         pages=pages, page_cnt=page_cnt, pages_contig=pages_contig, pmax=pmax,
         col16=col16, win_map=win_map, win_rel=win_rel, capw=capw, n_pad=n_pad,
+        stream_packed=stream_packed, decode=decode,
     )
 
 
-def _transpose_upload(hp: SimpleNamespace, values, value_dtype, device, ph: _Phases) -> CSR5Matrix:
+def _transpose_upload(hp: SimpleNamespace, values, value_dtype, device, ph: _Phases,
+                      keep_raw_cols: bool) -> CSR5Matrix:
     """The AoS->SoA tile transpose of a host plan and the copy of every
     plane onto ``device``; records the phases in
-    :data:`last_convert_phases`."""
+    :data:`last_convert_phases` (with ``decode`` when the raw columns were
+    rebuilt on the card from the uploaded codes)."""
     p_pad, nnz_pad, sig, omega = hp.p_pad, hp.nnz_pad, hp.config.sigma, hp.config.omega
     col_flat, val_flat, col16 = hp.col_flat, hp.val_flat, hp.col16
     # --- AoS->SoA tile transpose (format_cuda.h:525-744) ----------------
@@ -409,13 +472,22 @@ def _transpose_upload(hp: SimpleNamespace, values, value_dtype, device, ph: _Pha
         np.copyto(val_host, val_flat, casting="unsafe")
     vdt = value_dtype if value_dtype is not None else torch.from_numpy(val_host[:0]).dtype
 
-    col_tr = nativelib.tile_transpose(col_flat, p_pad, sig, omega, arena="cv:coltr")
-    val_tr = nativelib.tile_transpose(val_host, p_pad, sig, omega, arena="cv:valtr")
+    packed = col16 is not None and hp.stream_packed
+    # the raw plane is redundant beside col_packed (col_tiles_of decodes
+    # it exactly) unless the caller asks for it or K4 reads it
+    drop_raw = packed and not keep_raw_cols and not keep64
     pk_tr = (
         nativelib.pack_col16(col16, p_pad, sig, omega, arena="cv:pktr")
         if col16 is not None
         else None
     )
+    decode = hp.decode and col16 is not None and not packed and pk_tr is not None
+    col_tr = (
+        None
+        if drop_raw or decode
+        else nativelib.tile_transpose(col_flat, p_pad, sig, omega, arena="cv:coltr")
+    )
+    val_tr = nativelib.tile_transpose(val_host, p_pad, sig, omega, arena="cv:valtr")
     ph.mark("transpose")  # host work only; the copies to device time as "upload"
 
     def _tiles(flat_tr, flat, dtype=None):
@@ -425,10 +497,17 @@ def _transpose_upload(hp: SimpleNamespace, values, value_dtype, device, ph: _Pha
         t = torch.from_numpy(flat.reshape(p_pad, omega, sig)).transpose(1, 2)
         return t.to(device=device, dtype=dtype, copy=True).contiguous()
 
-    col_tiles = _tiles(col_tr, col_flat)
+    pages = _upload(hp.pages, device, torch.int32)
+    pk_dev = None
+    if drop_raw:
+        col_tiles = None
+    elif decode:
+        pk_dev = _upload(pk_tr, device)  # rebuilt on the card below
+    else:
+        col_tiles = _tiles(col_tr, col_flat)
     val_tiles = _tiles(val_tr, val_host, vdt)
     col_packed = None
-    if col16 is not None:
+    if packed:
         if pk_tr is not None:
             col_packed = _upload(pk_tr, device)
         else:
@@ -446,9 +525,15 @@ def _transpose_upload(hp: SimpleNamespace, values, value_dtype, device, ph: _Pha
     ph.mark("upload")
     up_bytes = sum(
         t.numel() * t.element_size()
-        for t in (col_tiles, val_tiles, col_packed)
+        for t in (pk_dev if decode else col_tiles, val_tiles, col_packed)
         if t is not None
     )
+    if decode:
+        col_tiles = decode_packed_codes(pk_dev, pages)
+        del pk_dev
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ph.mark("decode")
     ph.ms["upload_mb"] = up_bytes / 1e6
     if ph.ms.get("upload", 0.0) > 0:
         ph.ms["upload_gbps"] = up_bytes / 1e6 / ph.ms["upload"]
@@ -470,7 +555,7 @@ def _transpose_upload(hp: SimpleNamespace, values, value_dtype, device, ph: _Pha
         empty_offset=_upload(hp.eo, device, i32),
         col_idx_tiles=col_tiles,
         val_tiles=val_tiles,
-        pages=_upload(hp.pages, device, i32),
+        pages=pages,
         page_cnt=_upload(hp.page_cnt, device, i32),
         win_map=_upload(hp.win_map, device, i32),
         col_packed=col_packed,
@@ -494,6 +579,7 @@ def build_csr5(
     value_dtype=None,
     win_mode: str = "auto",
     device=DEFAULT_DEVICE,
+    keep_raw_cols: bool = False,
 ) -> CSR5Matrix:
     """CSR -> CSR5: the asCSR5() analogue (anonymouslib_cuda.h:106-220).
 
@@ -504,14 +590,16 @@ def build_csr5(
     JAX ``build_csr5`` under x64, ``convert.py:548-553``), or ``"auto"``:
     bfloat16 only when it is lossless. ``win_mode="aligned"`` builds
     128-aligned window maps instead of the wrapped ones. Every plane is
-    placed on ``device`` (default: the card).
+    placed on ``device`` (default: the card). Where ``col_packed`` exists
+    on a float32 or bfloat16 plane the raw ``col_idx_tiles`` is None
+    unless ``keep_raw_cols`` (``convert.py:223``, ``:560-566``).
     """
     device = resolve_device(device, "build_csr5")
     row_ptr, col_idx, values, (m, n) = _as_host_csr(csr)
     config = _config_for(m, int(values.shape[0]), config, sigma)
     ph = _Phases()
-    hp = _host_plan(row_ptr, col_idx, values, m, n, config, win_mode, ph)
-    return _transpose_upload(hp, values, value_dtype, device, ph)
+    hp = _host_plan(row_ptr, col_idx, values, m, n, config, win_mode, ph, keep_raw_cols, device)
+    return _transpose_upload(hp, values, value_dtype, device, ph, keep_raw_cols)
 
 
 def build_csr5_autotuned(
@@ -535,15 +623,17 @@ def build_csr5_autotuned(
     row_ptr, col_idx, values, (m, n) = _as_host_csr(csr)
     config = _config_for(m, int(values.shape[0]), config, AUTO_TUNED_SIGMA)
     ph = _Phases()
-    hp = _host_plan(row_ptr, col_idx, values, m, n, config, win_mode, ph)
+    plan = lambda cfg: _host_plan(  # noqa: E731
+        row_ptr, col_idx, values, m, n, cfg, win_mode, ph, False, device
+    )
+    hp = plan(config)
     if not hp.pages_contig:
         target = 8 if config.sigma <= 16 else 16
         if config.sigma != target:
-            config = CSR5Config(
+            hp = plan(CSR5Config(
                 omega=config.omega, sigma=target, tiles_per_block=config.tiles_per_block
-            )
-            hp = _host_plan(row_ptr, col_idx, values, m, n, config, win_mode, ph)
-    return _transpose_upload(hp, values, value_dtype, device, ph)
+            ))
+    return _transpose_upload(hp, values, value_dtype, device, ph, False)
 
 
 def csr5_to_csr(a5: CSR5Matrix) -> CSRMatrix:

@@ -10,10 +10,11 @@ tiles_per_block]``, ``__none__`` (fields that are None) and ``__bf16__``
 (bfloat16 planes, stored as their uint16 bits). A file saved by either
 package loads in the other. Loading puts every plane on ``device`` (the
 card by default) in the dtype it was saved in; nothing is narrowed. A
-JAX matrix saved without its raw column plane (``col_packed`` only)
-loads with that plane decoded, since the port always keeps it. The
-port's DIA ``offsets_t`` is derived from ``offsets``: it is not saved,
-and it is rebuilt on load.
+matrix saved without its raw column plane (``col_packed`` only, the
+default of both packages) loads without it, as the port builds it; a
+float64 plane gets it decoded, since K4 reads raw columns. The port's
+DIA ``offsets_t`` is derived from ``offsets``: it is not saved, and it is
+rebuilt on load.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, CSR5Config, resolve_device
-from ..models.formats import CSR5Matrix, col_tiles_of
+from ..models.formats import CSR5Matrix, with_k4_columns
 from ..ops.dia import DIAMatrix
 
 #: the JAX package's layout version (v3: aligned win_map carries the
@@ -117,10 +118,7 @@ def load_csr5(path: str, device=DEFAULT_DEVICE) -> CSR5Matrix:
     """A CSR5Matrix saved by :func:`save_csr5` or by the JAX package, on
     ``device`` (default: the card)."""
     device = resolve_device(device, "load_csr5")
-    a5 = _unpack_fields(CSR5Matrix, path, "CSR5Matrix", device)
-    if a5.col_idx_tiles is None:
-        a5.col_idx_tiles = col_tiles_of(a5).contiguous()
-    return a5
+    return with_k4_columns(_unpack_fields(CSR5Matrix, path, "CSR5Matrix", device))
 
 
 def save_dia(path: str, dia: DIAMatrix) -> None:

@@ -2,8 +2,9 @@
 """Drive the PyTorch + CUDA port's main paths once on one card: CSR5 SpMV,
 the structural formats (DIA, HYB5, ``--format auto``), the
 multi-right-hand-side path (``--spmm K``: CSR5 SpMM, band-block SpMM), the
-float64 path (``--dtype float64``, the SpMVHandle, the solvers) and the
-large-matrix path (the row-sliced form at 20M rows, the packed columns).
+float64 path (``--dtype float64``, the SpMVHandle, the solvers), the
+large-matrix path (the row-sliced form at 20M rows, the packed columns),
+the conversion on the card and the distributed layer at D = 1 on NCCL.
 
 Run from the root of the repository, with one NVIDIA GPU visible:
 
@@ -102,7 +103,8 @@ Phases, each of which must pass:
     cuSPARSE yardstick;
 16. the benchmark suite on the card: ``bench/suite.py`` in a subprocess
     (so banded20M's 24 GB of host memory is freed after it), its lines
-    relayed; every one of its 17 cases must land with ``check_ok``, the
+    relayed; every one of its 18 cases (``dist1_banded500k`` with its
+    aligned-map check inside ``check_ok``) must land with ``check_ok``, the
     integer-valued ones with max rel err 0.0, df64_banded500k within
     1e-12 of scipy float64, spmmf8 within 1e-4 (auto) and 1 % (forced
     bfloat16), and no share of HBM from the streamed bytes above 100 %
@@ -113,7 +115,26 @@ Phases, each of which must pass:
     (tridiagonal 500k) saved and loaded back onto the card, y through K1
     and K5 bit-equal to before; ``tile_to_string`` of one tile; both
     examples at their default sizes (CG's residual, PageRank's mass and
-    their seconds).
+    their seconds);
+18. CSR -> CSR5 on the card (``ops/convert_device.py``) from CSR tensors
+    already there, at banded500k, banded2M, fem3block600k (sigma 16, K1p),
+    powerlaw200k, scatband300k and banded20M (560M nonzeros, one form):
+    every plane bit-equal to the host build, y through K1/K1p equal to the
+    host-built matrix's and to scipy, the device build's time in three
+    parts (statics, upload, device stages) beside the host build's, the
+    card's peak memory; then the host build's two column routes at
+    banded2M and banded20M in turns (raw int32 upload, 2 B/nnz codes
+    decoded on the card), the rebuilt plane bit-equal to the raw one;
+19. the distributed layer at D = 1 on NCCL, in a process group of one
+    rank from a FileStore (the NCCL version printed): ``distribute_csr``
+    with halo none/auto and convert host/device at banded500k (the device
+    route required), ``distributed_spmv`` through K1 on wrapped and aligned
+    maps, ``distributed_spmm`` at R = 8 through K2, ``distribute_dia`` with
+    its SpMV (K5) and SpMM (K6), each exact against scipy and its
+    single-card counterpart; the rank-local SpMV against single-card K1 in
+    turns, ``weak_scaling([1])``, the all-gather floor at D = 1 and the
+    NVLink projection; then ``examples/distributed_spmv_torch.py`` at its
+    default size. The launches of phases 18-19 join the kernels line.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails. The last line of standard output is
@@ -1151,7 +1172,7 @@ def large_sweep(dev, rng) -> list:
         xd, xmd = torch.from_numpy(x).to(dev), torch.from_numpy(xm).to(dev)
         for vdt in (torch.float32, torch.bfloat16):
             a5 = build_csr5((a.indptr, a.indices, a.data, a.shape), cfg, value_dtype=vdt,
-                            win_mode=win_mode, device=dev)
+                            win_mode=win_mode, keep_raw_cols=True, device=dev)
             tag = f"K1p/K2p {name}/{str(vdt).removeprefix('torch.')}"
             if a5.col_packed is None:
                 say(f"[{tag}] no packed plane (pmax {a5.pmax} > 512): not a K1p case")
@@ -1392,6 +1413,7 @@ def large_turns(dev, card, kind, res, a20, band500k):
     import numpy as np
     import torch
 
+    from benchmark_spmv_using_csr5_tpu_torch.models.formats import col_tiles_of
     from benchmark_spmv_using_csr5_tpu_torch.ops import bigslice_kernel, csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.bigslice import sliced_spmv_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import (
@@ -1445,7 +1467,8 @@ def large_turns(dev, card, kind, res, a20, band500k):
 
     # --- banded500k at sigma 16: K1p against K1 on the raw plane ---------------
     a5p = res["banded500k_s16"].matrix
-    a5r = dataclasses.replace(a5p, col_packed=None)
+    # the same matrix with the raw plane (dropped beside col_packed) for K1
+    a5r = dataclasses.replace(a5p, col_packed=None, col_idx_tiles=col_tiles_of(a5p).contiguous())
     x = torch.from_numpy(np.random.default_rng(0).integers(1, 10, a5p.n).astype(np.float32)).to(dev)
     x8 = torch.from_numpy(np.random.default_rng(0).integers(1, 10, (a5p.n, 8)).astype(np.float32)).to(dev)
     fns = {
@@ -1613,6 +1636,273 @@ def persistence_phase(dev, failed) -> int:
         f"{cg['seconds']:.3f} s; pagerank_torch mass {pr['mass']:.7f} in {pr['seconds']:.3f} s; "
         f"{k1} K1 launches")
     return k1
+
+
+def _planes_equal(a5, b5, ragged_eo: bool) -> list:
+    """The fields where two CSR5 matrices differ: every plane bit for bit
+    (uint32 through its int32 view) and every static field; with
+    ``ragged_eo``, ``b5``'s ragged empty-offset table must sit in
+    ``a5``'s padded one, tile by tile."""
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch.models.formats import PLANE_FIELDS, STATIC_FIELDS
+
+    bad = [f for f in STATIC_FIELDS if getattr(a5, f) != getattr(b5, f)]
+    for f in PLANE_FIELDS:
+        if ragged_eo and f in ("empty_offset", "empty_offset_ptr"):
+            continue
+        s, t = getattr(a5, f), getattr(b5, f)
+        if s is None or t is None:
+            bad += [] if s is t else [f]
+            continue
+        as_i = (lambda u: u.view(torch.int32)) if s.dtype == torch.uint32 else (lambda u: u)
+        if s.dtype != t.dtype or s.shape != t.shape or not torch.equal(as_i(s), as_i(t)):
+            bad.append(f)
+    if ragged_eo:
+        w = a5.empty_offset.shape[0] // a5.num_tiles
+        table = a5.empty_offset.view(a5.num_tiles, w).cpu()
+        ptr, eo = b5.empty_offset_ptr.cpu(), b5.empty_offset.cpu()
+        for t in torch.nonzero(b5.tile_dirty.cpu()).flatten().tolist():
+            vals = eo[ptr[t]: ptr[t + 1]]
+            if not torch.equal(table[t, : len(vals)], vals) or table[t, len(vals):].any():
+                bad.append(f"empty_offset tile {t}")
+                break
+    return bad
+
+
+def conversion_phase(dev, card, failed) -> dict:
+    """Phase 18: CSR -> CSR5 on the card (``ops/convert_device.py``) from
+    CSR tensors already there, at banded500k, banded2M, fem3block600k
+    (sigma 16: col_packed, K1p), powerlaw200k (dirty tiles, page lists),
+    scatband300k (page lists) and banded20M (560M nonzeros, one form):
+    every plane bit-equal to the host build's (raw columns kept), y
+    through K1/K1p exactly equal to the host-built matrix's and to scipy
+    on integer data, and the times: the device build in three parts
+    (statics on the host, upload, device stages) beside the host build,
+    with the card's peak memory. Then the two column routes of the host
+    build at banded2M and banded20M in turns (raw upload, 2 B/nnz codes
+    decoded on the card, decoded, raw): the rebuilt plane bit-equal to the
+    raw one. Returns the K1 and K1p launches of the phase."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5
+    from benchmark_spmv_using_csr5_tpu_torch.ops import convert, csr5_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops.convert_device import build_csr5_device, plan_statics
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv
+    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+
+    def sync_ms(t0):
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    mats = [  # name, factory, sigma (None: the heuristic)
+        ("banded500k", lambda: synth.banded(500_000, 27, dtype=np.float32), None),
+        ("banded2M", lambda: synth.banded(2_000_000, 27, dtype=np.float32), None),
+        ("fem3block600k", lambda: synth.fem_blocks(600_000), 16),
+        ("powerlaw200k", lambda: synth.power_law(200_000, 200_000, 8.0, dtype=np.float32), None),
+        ("scatband300k", lambda: synth.scattered_band(300_000, 16, 6000, dtype=np.float32), None),
+        ("banded20M", lambda: synth.banded(20_000_000, 27, dtype=np.float32), None),
+    ]
+    csr5_kernel.launches = csr5_kernel.packed_launches = 0
+    for name, make, sig in mats:
+        a = sp.csr_matrix(make()).astype(np.float32)
+        host = (a.indptr, a.indices, a.data, a.shape)
+        cfg = None if sig is None else CSR5Config(sigma=sig)
+        t0 = time.perf_counter()
+        a5h = build_csr5(host, cfg, keep_raw_cols=True, device=dev)
+        host_ms = sync_ms(t0)
+        t0 = time.perf_counter()
+        st = plan_statics(a.indptr, a.indices, a.shape, cfg)
+        statics_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rp = torch.from_numpy(a.indptr.astype(np.int64)).to(dev)
+        ci = torch.from_numpy(a.indices.astype(np.int32)).to(dev)
+        v = torch.from_numpy(a.data).to(dev)
+        upload_ms = sync_ms(t0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        a5d = build_csr5_device(rp, ci, v, st, device=dev)
+        stages_ms = sync_ms(t0)
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        del rp, ci, v
+        bad = _planes_equal(a5d, a5h, ragged_eo=True)
+        x = np.random.default_rng(0).integers(1, 10, a.shape[1]).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        y_d, y_h = csr5_spmv(a5d, xd).cpu(), csr5_spmv(a5h, xd).cpu()
+        exact = torch.equal(y_d, y_h) and torch.equal(y_d, torch.from_numpy(a @ x))
+        kernel = "K1p" if a5d.col_packed is not None else "K1"
+        ok = not bad and exact
+        failed += [] if ok else [f"device conversion {name}: planes {bad}, y exact {exact}"]
+        say(f"[device conversion {name}] {'PASS' if ok else 'FAIL'}: nnz {a.nnz}, sigma {a5d.sigma}, "
+            f"pages {'contig' if a5d.pages_contig else 'list'} pmax {a5d.pmax}, dirty tiles "
+            f"{int(a5d.tile_dirty.sum())}, every plane bit-equal to the host build "
+            f"({'ok' if not bad else bad}), y through {kernel} equal to the host-built matrix's and "
+            f"to scipy: {exact}; device build {statics_ms + upload_ms + stages_ms:.1f} ms = statics "
+            f"{statics_ms:.1f} (host) + upload {upload_ms:.1f} + device stages {stages_ms:.1f}, "
+            f"device peak {peak_gb:.2f} GB above the inputs; host build (raw columns kept) "
+            f"{host_ms:.1f} ms {dict((k, round(w, 1)) for k, w in convert.last_convert_phases.items())} "
+            f"[{card}]")
+        del a5d, y_d, y_h
+        if name in ("banded2M", "banded20M"):
+            del a5h
+            routes, cols = {"raw": [], "decode": []}, {}
+            for route in ("raw", "decode", "decode", "raw"):
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                b5 = build_csr5(host, cfg, keep_raw_cols=route == "raw", device=dev)
+                ms = sync_ms(t0)
+                routes[route].append((ms, dict(convert.last_convert_phases)))
+                cols[route] = b5.col_idx_tiles
+                del b5
+            took = all("decode" in ph for _, ph in routes["decode"])
+            same = took and torch.equal(cols["raw"], cols["decode"])
+            failed += [] if same else [f"column routes {name}: decode taken {took}, bit-equal {same}"]
+            fmt = lambda r: ", ".join(  # noqa: E731
+                f"{ms:.1f} ms (" + ", ".join(f"{k} {w:.1f}" for k, w in ph.items()
+                                             if k in ("plan", "transpose", "upload", "decode", "upload_mb"))
+                + ")" for ms, ph in r)
+            say(f"[column routes {name}] {'PASS' if same else 'FAIL'}: raw int32 upload "
+                f"(keep_raw_cols=True) {fmt(routes['raw'])}; 2 B/nnz codes decoded on the card "
+                f"{fmt(routes['decode'])}; rebuilt plane bit-equal to the raw one: {same} [{card}]")
+            del cols
+            a5h = None
+        del a5h
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    launches = {"csr5_spmv": csr5_kernel.launches, "csr5_spmv_packed": csr5_kernel.packed_launches}
+    say(f"device conversion launches: {launches}")
+    for k, n in launches.items():
+        if n == 0:
+            failed.append(f"no {k} launch in the device-conversion phase")
+    return launches
+
+
+def distribution_phase(dev, card, failed) -> dict:
+    """Phase 19: the distributed layer at D = 1 on NCCL, in a process
+    group of one rank (a FileStore: no network): ``distribute_csr`` with
+    halo none/auto and convert host/device at banded500k (the device
+    route required), ``distributed_spmv`` through K1 on wrapped (host) and
+    aligned (device) maps, ``distributed_spmm`` at R = 8 through K2,
+    ``distribute_dia`` with ``distributed_dia_spmv``/``_spmm`` through K5
+    and K6, each exact against scipy and its single-card counterpart;
+    ``weak_scaling([1])``, the all-gather floor and the projection; then
+    the example at its default size. Returns the launches of the phase."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+
+    from benchmark_spmv_using_csr5_tpu_torch import build_csr5, build_dia, csr5_spmm, csr5_spmv
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel, dia_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops.dia import dia_spmm, dia_spmv
+    from benchmark_spmv_using_csr5_tpu_torch.parallel import distributed as pd
+    from benchmark_spmv_using_csr5_tpu_torch.parallel import distributed_dia as pdd
+    from benchmark_spmv_using_csr5_tpu_torch.parallel import launch, scaling
+    from benchmark_spmv_using_csr5_tpu_torch.utils import perf, synth
+
+    a = sp.csr_matrix(synth.banded(500_000, 27, dtype=np.float32))
+    host = (a.indptr, a.indices, a.data, a.shape)
+    rng = np.random.default_rng(0)
+    x = rng.integers(1, 10, a.shape[1]).astype(np.float32)
+    xm = rng.integers(1, 10, (a.shape[1], 8)).astype(np.float32)
+    xd, xmd = torch.from_numpy(x).to(dev), torch.from_numpy(xm).to(dev)
+    y_s, ym_s = torch.from_numpy(a @ x), torch.from_numpy(a @ xm)
+    single = build_csr5(host, device=dev)
+    d1 = build_dia(a, device=dev)
+    y1, ym1 = csr5_spmv(single, xd).cpu(), csr5_spmm(single, xmd).cpu()
+    yd1, ymd1 = dia_spmv(d1, xd).cpu(), dia_spmm(d1, xmd).cpu()
+    csr5_kernel.launches = csr5_kernel.packed_launches = csr5_kernel.spmm_launches = 0
+    dia_kernel.spmv_launches = dia_kernel.spmm_launches = 0
+    out = {}
+    with launch.single_rank_group(dev):
+        mesh = pd.make_mesh(1, dev)
+        backend = dist.get_backend()
+        say(f"[distribution] process group of 1 rank on {backend} (NCCL "
+            f"{torch.cuda.nccl.version()}), mesh device {mesh.device}")
+        if backend != "nccl" or mesh.backend != "nccl":
+            failed.append(f"distribution ran on {backend}, not NCCL")
+        for halo in ("none", "auto"):
+            for conv in ("host", "device"):
+                t0 = time.perf_counter()
+                da = pd.distribute_csr(*host, mesh, halo=halo, convert=conv)
+                torch.cuda.synchronize(dev)
+                build_s = time.perf_counter() - t0
+                y = pd.distributed_spmv(da, xd, mesh).cpu()
+                ok = (da.convert_route == conv and da.local.win_rel == (conv == "host")
+                      and torch.equal(y, y_s) and torch.equal(y, y1) and da.halo is None
+                      and da.x_bytes_exchanged() == 0)
+                tag = f"halo={halo} convert={conv}"
+                failed += [] if ok else [f"distributed_spmv {tag}"]
+                say(f"[distributed_spmv {tag}] {'PASS' if ok else 'FAIL'}: route {da.convert_route}, "
+                    f"{'wrapped' if da.local.win_rel else 'aligned'} maps, K1 on {da.local.num_tiles} "
+                    f"tiles, y equal to scipy and to single-card K1; x bytes exchanged "
+                    f"{da.x_bytes_exchanged()}; shard built in {build_s:.2f} s")
+                out[(halo, conv)] = da
+        da = out[("none", "host")]
+        ym = pd.distributed_spmm(da, xmd, mesh).cpu()
+        ok = torch.equal(ym, ym_s) and torch.equal(ym, ym1)
+        failed += [] if ok else ["distributed_spmm"]
+        say(f"[distributed_spmm R=8] {'PASS' if ok else 'FAIL'}: K2 "
+            f"({csr5_kernel.spmm_mode(da.local, 8)}), Y equal to scipy and to single-card K2")
+        dd = pdd.distribute_dia(a, mesh)
+        yd = pdd.distributed_dia_spmv(dd, xd, mesh).cpu()
+        ydm = pdd.distributed_dia_spmm(dd, xmd, mesh).cpu()
+        ok = (torch.equal(yd, y_s) and torch.equal(yd, yd1) and torch.equal(ydm, ym_s)
+              and torch.equal(ydm, ymd1) and dd.halo == (0, 0))
+        failed += [] if ok else ["distributed DIA"]
+        say(f"[distributed DIA] {'PASS' if ok else 'FAIL'}: {dd.ndiag} diagonals, halo {dd.halo}, "
+            f"K5 y and K6 Y (R=8) equal to scipy and to single-card K5/K6")
+        # the distributed path's time against single-card K1, in turns
+        xs = pd.shard_of(xd, da.n, mesh)
+        local = lambda d_, x_: pd.distributed_spmv_local(d_, x_, mesh)  # noqa: E731
+        times = {"dist": [], "k1": []}
+        for which in ("dist", "k1", "k1", "dist"):
+            fn, mat, xx = (local, da, xs) if which == "dist" else (csr5_spmv, single, xd)
+            times[which].append(perf.benchmark(fn, mat, xx, device=dev, num_run=200))
+        t = {k: sum(v) / 2 for k, v in times.items()}
+        # what one exchange costs at D = 1: the list all-gather of a halo and
+        # of x, against a plain copy of the same bytes (host and device us)
+        for nbytes in (2 * 128 * 4, 4 * a.shape[1]):
+            src = torch.ones(nbytes // 4, device=dev)
+            dst = torch.empty_like(src)
+            costs = {}
+            for label, fn in (("all_gather", lambda: pd.all_gather_cat(src, mesh)),
+                              ("copy_", lambda: dst.copy_(src))):
+                costs[label] = (perf.benchmark(fn, device=dev, warmup=20, num_run=300) * 1e3,
+                                device_us_per_call(fn))
+            say(f"[exchange cost at D = 1, {nbytes} B, {card}] " + "; ".join(
+                f"{k}: {us:.2f} us per call (events), device {d_us} us" for k, (us, d_us) in costs.items()))
+        pts = scaling.weak_scaling([1], rows_per_device=500_000, iters=200, device=dev)
+        floor_s = scaling.collective_floor_s(mesh, 2 * 128 * 4)
+        proj = scaling.project_weak_scaling(pts[0].ms_per_spmv, 500_000, latency_s=floor_s)
+        say(f"[distribution timing, {card}] rank-local distributed SpMV (all-gather + K1) "
+            f"{t['dist']:.5f} ms against single-card K1 {t['k1']:.5f} ms per call (turns "
+            f"{times}); overhead {100 * (t['dist'] / t['k1'] - 1):.1f} %")
+        say(scaling.report(pts))
+        say(f"all-gather of a 1 KB halo at D = 1: {floor_s * 1e6:.2f} us per call (a floor "
+            f"measured at D = 1, not a hop between cards)")
+        say(scaling.projection_report(proj, pts[0].ms_per_spmv, scaling.NVLINK_GBPS, floor_s))
+        if not (np.isfinite(pts[0].ms_per_spmv) and pts[0].efficiency == 1.0):
+            failed.append("weak_scaling([1])")
+    launches = {"csr5_spmv": csr5_kernel.launches, "csr5_spmv_packed": csr5_kernel.packed_launches,
+                "csr5_spmm": csr5_kernel.spmm_launches, "dia_spmv": dia_kernel.spmv_launches,
+                "dia_spmm": dia_kernel.spmm_launches}
+    t0 = time.perf_counter()
+    ex = _load_example("distributed_spmv_torch").main([])
+    torch.cuda.synchronize(dev)
+    launches["csr5_spmv"] = csr5_kernel.launches
+    ok = (ex["backend"] == "nccl" and ex["all_gather_rel_err"] == 0.0 and ex["halo_rel_err"] == 0.0)
+    failed += [] if ok else ["distributed example"]
+    say(f"[example distributed_spmv_torch] {'PASS' if ok else 'FAIL'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    say(f"distribution launches: {launches}")
+    for k in ("csr5_spmv", "csr5_spmm", "dia_spmv", "dia_spmm"):
+        if launches[k] == 0:
+            failed.append(f"no {k} launch on the distributed path")
+    return launches
 
 
 def main() -> int:
@@ -1866,16 +2156,31 @@ def main() -> int:
         print(f"chip_smoke: checkpoints/examples failed: {failed}", file=sys.stderr)
         return 1
 
+    # --- 18. CSR -> CSR5 on the card, and the two column routes -------------
+    conv_launches = conversion_phase(dev, card, failed)
+    if failed:
+        print(f"chip_smoke: device conversion failed: {failed}", file=sys.stderr)
+        return 1
+
+    # --- 19. distribution at D = 1 on NCCL, and its example -------------------
+    dist_launches = distribution_phase(dev, card, failed)
+    if failed:
+        print(f"chip_smoke: distribution failed: {failed}", file=sys.stderr)
+        return 1
+    extra = {k: conv_launches.get(k, 0) + dist_launches.get(k, 0)
+             for k in set(conv_launches) | set(dist_launches)}
+
     def entry(name, source, replaces, launches_, err, ms, plain):
         b_ms, b_by, lib_ms = bounds[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches_ + suite_launches.get(name, 0), "max_abs_err": err, "ms": ms,
+                "launches": launches_ + suite_launches.get(name, 0) + extra.get(name, 0),
+                "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
     def large_entry(name, source, replaces):
         ms, plain, b_ms, b_by, lib_ms = lt[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": large_launches[name] + suite_launches.get(name, 0),
+                "launches": large_launches[name] + suite_launches.get(name, 0) + extra.get(name, 0),
                 "max_abs_err": large_err[name], "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib_ms}
 

@@ -102,13 +102,7 @@ def _same_slice(a5p, a5j, tag):
     planes, static = P.csr5_to_numpy(a5p)
     for f in PLANE_FIELDS:
         ref = getattr(a5j, f)
-        if f == "col_idx_tiles" and ref is None:
-            # the JAX slice dropped its raw plane: compare the decode
-            ref = P.col_tiles_of(P.csr5_from_numpy(
-                {g: None if getattr(a5j, g) is None else np.asarray(getattr(a5j, g))
-                 for g in PLANE_FIELDS},
-                {g: getattr(a5j, g) for g in STATIC_FIELDS}, device="cpu")).numpy()
-        if ref is None:
+        if ref is None:  # the raw plane beside col_packed: dropped in both
             assert planes[f] is None, (tag, f)
             continue
         ref = np.asarray(ref)

@@ -25,6 +25,7 @@ from benchmark_spmv_using_csr5_tpu.bench import case_runner as jcr
 from benchmark_spmv_using_csr5_tpu_torch.bench import case_runner as cr
 from benchmark_spmv_using_csr5_tpu_torch.bench import harness
 from benchmark_spmv_using_csr5_tpu_torch.ops import bigslice
+from benchmark_spmv_using_csr5_tpu_torch.parallel.distributed import build_shard
 from benchmark_spmv_using_csr5_tpu_torch.utils import perf, synth
 
 #: every case record carries these
@@ -262,7 +263,43 @@ def test_run_one_defaults_to_the_card_and_knows_its_cases(small):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cr.run_one("banded500k")
     with pytest.raises(ValueError, match="unknown case"):
-        cr.run_one("dist1_banded500k", "cpu")
+        cr.run_one("no_such_case", "cpu")
+
+
+def test_dist1_case(small):
+    """The distributed SpMV at D = 1 in its own gloo group on the CPU:
+    exact, every field present, the group destroyed afterwards."""
+    import torch.distributed as dist
+
+    out = cr._run_dist1_case("cpu", m=5000, num_run=2)
+    out["launches"] = {}
+    _check_record(out)
+    assert out["name"] == "dist1_banded500k" and out["backend"] == "dist1-gloo"
+    assert out["aligned_check_ok"] is True and out["single_chip_check_ok"] is True
+    assert out["spmv_ms"] > 0 and out["single_chip_ms"] > 0 and out["aligned_shard_ms"] > 0
+    assert out["overhead_pct"] == pytest.approx(100 * (out["spmv_ms"] / out["single_chip_ms"] - 1))
+    assert out["convert_route"] == "host" and out["x_bytes_exchanged"] == 0
+    assert out["storage"] == "float32" and not dist.is_initialized()
+    a = synth.banded(5000, 27, dtype=np.float32)
+    shard = build_shard(a.indptr, a.indices, a.data, a.shape, 0, 1, device="cpu")
+    assert out["streamed_bytes"] == perf.streamed_bytes(shard.local, torch.zeros(5000))
+
+
+def test_dist1_case_fails_when_the_aligned_check_fails(small, monkeypatch):
+    """The aligned-map check gates check_ok (the JAX case leaves it out,
+    ``case_runner.py:630``)."""
+    real = cr.build_csr5
+
+    def broken(*args, win_mode="auto", **kw):
+        a5 = real(*args, win_mode=win_mode, **kw)
+        if win_mode == "aligned":
+            a5.val_tiles = a5.val_tiles * 2
+        return a5
+
+    monkeypatch.setattr(cr, "build_csr5", broken)
+    out = cr._run_dist1_case("cpu", m=5000, num_run=2)
+    assert out["aligned_check_ok"] is False and out["aligned_rel_err"] > 0.01
+    assert out["aligned_shard_ms"] is None and out["check_ok"] is False
 
 
 def test_prewarm_arena_sizes(monkeypatch):

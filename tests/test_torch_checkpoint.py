@@ -20,7 +20,11 @@ from benchmark_spmv_using_csr5_tpu.ops import dia as jdia
 from benchmark_spmv_using_csr5_tpu.ops.csr5_spmv import csr5_spmv_xla
 from benchmark_spmv_using_csr5_tpu.utils import checkpoint as jcheckpoint
 from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5, build_dia
-from benchmark_spmv_using_csr5_tpu_torch.models.formats import PLANE_FIELDS, STATIC_FIELDS
+from benchmark_spmv_using_csr5_tpu_torch.models.formats import (
+    PLANE_FIELDS,
+    STATIC_FIELDS,
+    col_tiles_of,
+)
 from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
 from benchmark_spmv_using_csr5_tpu_torch.ops.dia import dia_spmv_torch
 from benchmark_spmv_using_csr5_tpu_torch.utils import checkpoint, synth
@@ -88,9 +92,10 @@ def test_jax_saved_csr5_loads_in_the_port(tmp_path, vdt):
     assert str(back.val_tiles.dtype) == f"torch.{vdt}"
     for f in PLANE_FIELDS:
         jv = getattr(ja5, f)
-        if f == "col_idx_tiles":
-            jv = jcol_tiles_of(ja5)  # decoded on load: the port keeps the raw plane
         got = getattr(back, f)
+        if f == "col_idx_tiles":  # dropped in both; the port's decode is JAX's
+            assert got is None
+            jv, got = jcol_tiles_of(ja5), col_tiles_of(back)
         got = got.float() if got.dtype == torch.bfloat16 else got
         np.testing.assert_array_equal(got.numpy(), np.asarray(jv).astype(got.numpy().dtype), err_msg=f)
     for f in STATIC_FIELDS:

@@ -60,20 +60,24 @@ def assert_same_matrix(a5p, a5j):
     assert static["value_dtype"] == jdt
 
 
+@pytest.mark.parametrize("keep_raw_cols", [True, False], ids=["raw", "lean"])
 @pytest.mark.parametrize("value_dtype", [None, "auto"])
 @pytest.mark.parametrize("win_mode", ["auto", "aligned"])
 @pytest.mark.parametrize("sigma", [8, 16, 24, 32])
-def test_convert_planes_match_jax(edge_matrix, sigma, win_mode, value_dtype):
+def test_convert_planes_match_jax(edge_matrix, sigma, win_mode, value_dtype, keep_raw_cols):
     name, a_sp = edge_matrix
     _, host = _host(a_sp)
     a5j = J.build_csr5(
         host, J.CSR5Config(sigma=sigma), value_dtype=value_dtype,
-        win_mode=win_mode, keep_raw_cols=True,
+        win_mode=win_mode, keep_raw_cols=keep_raw_cols,
     )
     a5p = P.build_csr5(
-        host, P.CSR5Config(sigma=sigma), value_dtype=value_dtype, win_mode=win_mode, device="cpu"
+        host, P.CSR5Config(sigma=sigma), value_dtype=value_dtype, win_mode=win_mode,
+        keep_raw_cols=keep_raw_cols, device="cpu",
     )
     assert_same_matrix(a5p, a5j)
+    # the raw plane goes exactly where col_packed comes, unless kept
+    assert (a5p.col_idx_tiles is None) == (a5p.col_packed is not None and not keep_raw_cols)
     # integer values 1-9: the lossless gate stores bfloat16
     want = torch.bfloat16 if value_dtype == "auto" else torch.float32
     assert a5p.val_tiles.dtype == want, name
@@ -90,8 +94,8 @@ def test_csr5_to_csr_roundtrip_exact(edge_matrix, value_dtype):
 
 
 def test_carry_across_roundtrip():
-    """A JAX matrix carried into the port and back keeps every plane;
-    with the raw column plane dropped, the port decodes col_packed."""
+    """A JAX matrix carried into the port and back keeps every plane; the
+    raw column plane dropped in both, its decode is the JAX raw plane."""
     _, host = _host(synth.banded(3000, 27, dtype=np.float32))
     a5j = J.build_csr5(host, J.CSR5Config(sigma=16), value_dtype="auto")
     assert a5j.col_idx_tiles is None and a5j.col_packed is not None
@@ -99,7 +103,8 @@ def test_carry_across_roundtrip():
     static["value_dtype"] = "bfloat16"
     a5p = P.csr5_from_numpy(_jax_planes(a5j), static, device="cpu")
     ref = _jax_planes(J.build_csr5(host, J.CSR5Config(sigma=16), keep_raw_cols=True))
-    np.testing.assert_array_equal(a5p.col_idx_tiles.numpy(), ref["col_idx_tiles"])
+    assert a5p.col_idx_tiles is None
+    np.testing.assert_array_equal(P.col_tiles_of(a5p).numpy(), ref["col_idx_tiles"])
     assert a5p.val_tiles.dtype == torch.bfloat16
     planes, _ = P.csr5_to_numpy(a5p)
     for f in ("win_map", "tile_ptr", "val_tiles", "col_packed", "bit_flag"):
@@ -111,9 +116,10 @@ def test_host_arena_does_not_alias_planes():
     leave the first matrix's tensors untouched."""
     _, h1 = _host(synth.banded(2000, 9, dtype=np.float32))
     _, h2 = _host(synth.power_law(2000, 2000, 12.0, dtype=np.float32, seed=3))
-    a = P.build_csr5(h1, P.CSR5Config(sigma=16), device="cpu")
-    before = {f: getattr(a, f).clone() for f in ("col_idx_tiles", "val_tiles", "win_map")}
-    P.build_csr5(h2, P.CSR5Config(sigma=16), device="cpu")
+    a = P.build_csr5(h1, P.CSR5Config(sigma=16), keep_raw_cols=True, device="cpu")
+    fields = ("col_idx_tiles", "col_packed", "val_tiles", "win_map")
+    before = {f: getattr(a, f).clone() for f in fields}
+    P.build_csr5(h2, P.CSR5Config(sigma=16), keep_raw_cols=True, device="cpu")
     for f, t in before.items():
         assert torch.equal(getattr(a, f), t), f
 

@@ -6,8 +6,8 @@ conversion builds ``col_packed`` (two uint16 codes ``lane | local_page <<
 and the JAX kernel streams it (``csr5_kernel.py:816-820``); the port's
 kernels K1p and K2p do the same. Here, on the CPU:
 
-- the port's packed planes and page lists equal the JAX
-  ``build_csr5(..., keep_raw_cols=True)`` ones, at sigma 16 and 32, with
+- the port's packed planes and page lists equal the JAX ones, both
+  built with ``keep_raw_cols=True``, at sigma 16 and 32, with
   contiguous and scattered page lists, pmax up to 512, a ragged tail tile
   and both window modes;
 - the plain versions of K1p and K2p, which decode the columns from
@@ -71,7 +71,7 @@ def _pair(a, sigma, win_mode="auto", value_dtype=None):
     )
     a5p = P.build_csr5(
         host, P.CSR5Config(sigma=sigma, tiles_per_block=8), value_dtype=value_dtype,
-        win_mode=win_mode, device="cpu",
+        win_mode=win_mode, keep_raw_cols=True, device="cpu",
     )
     return a5j, a5p
 
@@ -171,8 +171,8 @@ def test_packed_random_floats(sigma):
     rng = np.random.default_rng(9)
     a.data = rng.uniform(-1, 1, a.nnz).astype(np.float32)
     x = rng.uniform(-1, 1, a.shape[1]).astype(np.float32)
-    a5p = P.build_csr5(a, P.CSR5Config(sigma=sigma), device="cpu")
-    assert a5p.col_packed is not None
+    a5p = P.build_csr5(a, P.CSR5Config(sigma=sigma), keep_raw_cols=True, device="cpu")
+    assert a5p.col_packed is not None and a5p.col_idx_tiles is not None
     y = P.csr5_spmv_packed_torch(a5p, torch.from_numpy(x)).double().numpy()
     assert np.array_equal(y, P.csr5_spmv_torch(a5p, torch.from_numpy(x)).double().numpy())
     y64 = a.astype(np.float64) @ x.astype(np.float64)

@@ -42,11 +42,13 @@ def test_csr5_raw_plane():
 
 def test_csr5_packed_plane_replaces_the_raw_columns():
     a = synth.banded(3000, 27, dtype=np.float32)
-    a5 = build_csr5(a, CSR5Config(sigma=16), device="cpu")
+    a5 = build_csr5(a, CSR5Config(sigma=16), keep_raw_cols=True, device="cpu")
     assert a5.col_packed is not None
     x = torch.ones(3000)
     want = nb(a5.col_packed, a5.pages, a5.val_tiles, a5.win_map, a5.tile_ptr) + 2 * 3000 * 4
     assert perf.streamed_bytes(a5, x) == want
+    # the default build drops the raw plane K1p does not read: same bytes
+    assert perf.streamed_bytes(build_csr5(a, CSR5Config(sigma=16), device="cpu"), x) == want
     raw = dataclasses.replace(a5, col_packed=None)
     assert perf.streamed_bytes(raw, x) - want == nb(a5.col_idx_tiles) - nb(a5.col_packed, a5.pages)
 

@@ -2,8 +2,8 @@
 ``tests/test_bench_summary.py``: the compact last line stays under 1024
 bytes at any number of cases and names its byte models, ``check`` folds
 every case, a case that raises is recorded and gives exit code 1, the
-cumulative record goes to ``--out``, ``CASES`` is ``bench.py``'s list
-less ``dist1_banded500k``, and the module imports without jax."""
+cumulative record goes to ``--out``, ``CASES`` is ``bench.py``'s list of
+18 cases, and the module imports without jax."""
 
 import ast
 import json
@@ -133,8 +133,8 @@ def test_failed_check_gives_exit_code_1(tmp_path, monkeypatch):
 
 
 def test_unknown_case_is_refused(monkeypatch):
-    with pytest.raises(SystemExit, match="dist1_banded500k"):
-        _main(monkeypatch, ["dist1_banded500k", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no_such_case.*dist1_banded500k"):
+        _main(monkeypatch, ["no_such_case", "--device", "cpu"])
 
 
 def test_cases_are_bench_py_less_dist1():
@@ -144,12 +144,13 @@ def test_cases_are_bench_py_less_dist1():
         for node in tree.body
         if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "CASES" for t in node.targets)
     )
-    assert len(cases) == 18
-    assert suite.CASES == [c for c in cases if c != "dist1_banded500k"]
-    assert len(suite.CASES) == 17 and suite.PRIMARY == "banded500k" == suite.CASES[0]
+    # the whole list, dist1_banded500k included, in bench.py's order
+    assert len(cases) == 18 and suite.CASES == cases
+    assert suite.PRIMARY == "banded500k" == suite.CASES[0]
     # every case has a runner
     known = set(case_runner._suite()) | set(case_runner._mtx_suite()) | {
         "dia_tridiag500k", "dia_banded2M", "spmm16_banded500k", "spmmf8_banded500k", "hybmix400k",
+        "dist1_banded500k",
     }
     assert set(suite.CASES) == known
 
@@ -160,9 +161,14 @@ def test_imports_without_jax():
         "sys.modules['benchmark_spmv_using_csr5_tpu'] = None; "
         "import benchmark_spmv_using_csr5_tpu_torch.bench.suite as s; "
         "import benchmark_spmv_using_csr5_tpu_torch.utils.checkpoint, "
-        "benchmark_spmv_using_csr5_tpu_torch.utils.debug; print(len(s.CASES))"
+        "benchmark_spmv_using_csr5_tpu_torch.utils.debug, "
+        "benchmark_spmv_using_csr5_tpu_torch.ops.convert_device, "
+        "benchmark_spmv_using_csr5_tpu_torch.parallel.distributed, "
+        "benchmark_spmv_using_csr5_tpu_torch.parallel.distributed_dia, "
+        "benchmark_spmv_using_csr5_tpu_torch.parallel.scaling, "
+        "benchmark_spmv_using_csr5_tpu_torch.parallel.launch; print(len(s.CASES))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "17"
+    assert out.stdout.strip() == "18"
