@@ -2,9 +2,12 @@
 
 The kernel (``csrc/bandmm.cu``) replaces the JAX package's Pallas kernel
 ``ops/bandmm.py::_bandmm_kernel`` (launched by ``_bandmm_jit``): one
-128-thread block per 128-row block of the dense plane, one thread per row,
-up to 16 right-hand sides per launch chunk. Y is written whole, so it is
-allocated with ``torch.empty``. alpha is folded into X first, as
+four-warp block per 128-row block of the dense plane, the plane streamed
+through a ring of shared-memory slots, tensor cores (bf16 operands, float32
+sums) in ``"default"`` and exact float32 products on the CUDA cores in
+``"highest"``, up to 32 right-hand sides per launch chunk (16 on a float32
+plane). The kernel sets its own dynamic shared memory. Y is written whole,
+so it is allocated with ``torch.empty``. alpha is folded into X first, as
 ``_bandmm_jit`` does; the window of X is read in place through strides,
 masked to 0 past n.
 
@@ -23,8 +26,12 @@ from .bandmm import LANES, BandBlockMatrix, bandmm_supported, resolve_precision
 
 #: K7 launches so far in this process (the wrapper adds one per launch)
 launches = 0
-#: right-hand sides per launch chunk (accumulators per thread)
-MAX_CHUNK = 16
+#: right-hand sides per launch chunk: one pass over a bfloat16 plane for
+#: R <= 32
+MAX_CHUNK = 32
+#: the same on a float32 plane: its ring at 32 right-hand sides (126 KB)
+#: would leave one CTA per SM, and "highest" 32 accumulators per thread
+MAX_CHUNK_F32 = 16
 
 _bound = None
 
@@ -44,6 +51,18 @@ def _lib() -> ctypes.CDLL:
         lib.bandmm_error_string.restype = ctypes.c_char_p
         _bound = lib
     return _bound
+
+
+def chunk_width(num_rhs: int, plane_dtype: torch.dtype) -> int:
+    """The right-hand sides of one launch chunk (``rc``) for R = ``num_rhs``
+    on a plane of ``plane_dtype``: the power of two at or above
+    min(R, MAX_CHUNK), at most MAX_CHUNK_F32 on a float32 plane. The kernel
+    pads it to a multiple of 8 on the tensor cores."""
+    cap = MAX_CHUNK if plane_dtype == torch.bfloat16 else MAX_CHUNK_F32
+    rc = 1
+    while rc < min(num_rhs, cap):
+        rc *= 2
+    return rc
 
 
 def bandmm_spmm_cuda(
@@ -89,9 +108,7 @@ def bandmm_spmm_cuda(
     fn = lib.bandmm_bf16 if d.dtype == torch.bfloat16 else lib.bandmm_f32
     xa = x if alpha == 1.0 else x * alpha
     y = torch.empty((R, m) if rn else (m, R), dtype=torch.float32, device=dev)
-    rc = 1
-    while rc < min(R, MAX_CHUNK):
-        rc *= 2
+    rc = chunk_width(R, d.dtype)
     xs_c, xs_r = (1, n) if rn else (R, 1)
     ys_row, ys_r = (1, m) if rn else (R, 1)
     rcode = fn(

@@ -43,13 +43,16 @@ Phases, each of which must pass:
    and the device time of each kernel by ``torch.profiler``;
 7. kernels K2 (CSR5 SpMM) and K7 (band-block SpMM) against their plain
    versions on the card and against scipy, on the odd shapes of phases 2
-   and 4: R in {1, 2, 5, 8, 16, 17}, both layouts, float32 and bfloat16
-   planes (K7: "highest" and "default" on float32, "default" on bfloat16),
-   alpha = -1.75, exact on integer data; one case of random floats each,
-   held to 1e-5 of each row's |A||X|. Every K2 case prints the staging
-   mode of its launches (``spmm_mode``: X staged in shared memory, or
-   gathered), and the phase fails unless both modes ran and every launch
-   in each was exact;
+   and 4: R in {1, 2, 5, 8, 16, 17} (K7 also 32, one pass over the plane,
+   and 33, two chunks), both layouts, float32 and bfloat16 planes (K7:
+   "highest" and "default" on float32, "default" on bfloat16), alpha =
+   -1.75, exact on integer data; random floats held to 1e-5 of each row's
+   |A||X| against the plain version and float64 scipy (K7 in "highest"
+   and in "default", the tensor cores on a float32 plane, whose float64
+   reference takes the bf16-rounded operands). Every K2 case prints the
+   staging mode of its launches (``spmm_mode``: X staged in shared memory,
+   or gathered), and the phase fails unless both modes ran and every
+   launch in each was exact;
 8. the SpMM path at full width through the CLI's own code and the API:
    ``--spmm 8`` at banded500k (csr5: K2), ``--format bandblock --spmm 8``
    and ``--spmm 16`` (K7, bfloat16 plane by the gate), ``--format auto
@@ -62,6 +65,8 @@ Phases, each of which must pass:
 9. K2 (with its staging mode), K6 and K7 at R = 8 on the same banded500k
    matrix and X, and K7 at R = 16, in turns with their plain versions, and
    their device times by ``torch.profiler``: the card's own SpMM crossover;
+   K7's device time at R = 8 and 16 beside its bound, cuSPARSE's SpMM at
+   R = 16, and K7/K2 at R = 8 (the ratio ``--format auto --spmm`` pays);
 10. kernel K4 (float64 CSR5 SpMV) against its plain version and scipy
     float64 on the odd shapes of phase 2: exact on integer data at alpha 1
     and -1.75, within T * 2^-53 of the row's tile mass on non-dyadic
@@ -162,6 +167,8 @@ K2_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_kernel.py:227"
 K2_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/csr5_spmm.cu"
 K7_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/bandmm.py:243"
 K7_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/bandmm.cu"
+#: what K7's kernel names hold (bandmm_mma_kernel, bandmm_fma_kernel)
+K7_KERNELS = "bandmm_"
 #: K4's TPU original (the double-single kernel) and source
 K4_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_df64.py:281"
 K4_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/csr5_spmv_f64.cu"
@@ -175,14 +182,25 @@ SOURCES = ("csr5_spmv", "csr5_spmv_f64", "csr5_spmm", "dia_spmv", "bandmm", "csr
 #: the suite's cases whose values are not integers (checked by their own
 #: limits); every other case must be exact
 SUITE_FLOAT_CASES = ("df64_banded500k", "spmmf8_banded500k")
-#: peak rates of one H100 SXM outside the tensor cores (NVIDIA's data
-#: sheet, at the full 700 W): float32 and float64 FLOP/s, for the bounds
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+#: peak rates of one H100 SXM (NVIDIA's data sheet, at the full 700 W):
+#: float32 and float64 FLOP/s outside the tensor cores, bfloat16 dense on
+#: them (K7's "default" products), for the bounds
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 #: right-hand-side counts of the SpMM sweep
 SWEEP_RHS = (1, 2, 5, 8, 16, 17)
+#: right-hand-side counts of K7's sweep: one pass over the plane up to 32,
+#: two chunks at 33
+K7_SWEEP_RHS = SWEEP_RHS + (32, 33)
 #: rtol of the random-float case against the row's absolute sum: the
 #: kernel and the plain version sum the tile prefix in another order
 FLOAT_RTOL = 1e-5
+#: why K7 meets FLOAT_RTOL on random floats, by precision: the plain
+#: version is one float32 bmm on the same operands, the float64 reference
+#: takes the operands K7's products take (bf16-rounded in "default")
+K7_FLOAT_NOTE = {
+    "highest": "exact float32 products summed in k order",
+    "default": "bf16 operands, exact products, float32 sums in the MMA's order",
+}
 #: K4 on non-integer data, against its plain version and scipy float64:
 #: within T * 2^-53 of the |A||x| mass of the row's tiles (T = sigma * 128
 #: products per tile), the classical bound of a prefix sum of T terms,
@@ -558,18 +576,16 @@ def modes_ran(tag, modes) -> list:
 
 
 def spmm_sweep(dev, rng) -> list:
-    """K2 and K7 against their plain versions on the card and scipy on
-    the odd shapes of phases 2 and 4, every R of SWEEP_RHS, both layouts,
-    both planes, alpha = -1.75; one random-float case each."""
+    """K2 against its plain version on the card and scipy on the odd
+    shapes of phase 2, every R of SWEEP_RHS, both layouts, both planes,
+    alpha = -1.75, and one random-float case; then K7 (:func:`k7_sweep`)."""
     import numpy as np
     import scipy.sparse as sp
     import torch
 
-    from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_bandblock, build_csr5
-    from benchmark_spmv_using_csr5_tpu_torch.ops import bandmm_kernel, csr5_kernel
-    from benchmark_spmv_using_csr5_tpu_torch.ops.bandmm import bandmm_spmm_torch
+    from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmm_torch
-    from benchmark_spmv_using_csr5_tpu_torch.ops.dia import CHUNK_ROWS
     from benchmark_spmv_using_csr5_tpu_torch.utils import synth
 
     alpha = -1.75
@@ -600,7 +616,48 @@ def spmm_sweep(dev, rng) -> list:
                 f"nr+rn sigma={a5.sigma} capw={a5.capw} chunk(8)={csr5_kernel.spmm_chunk(a5, 8)} "
                 f"pmax={a5.pmax} contig={a5.pages_contig} modes {mode_list(a5)}")
     failed += modes_ran("K2", modes)
-    # K7 on phase 4's shapes and the band-block test shapes
+    failed += k7_sweep(dev, rng)
+    # random floats: K2 sums in K1's order
+    a = sp.csr_matrix(synth.banded(20_000, 27)).astype(np.float32)
+    a.data = rng.uniform(-1, 1, a.nnz).astype(np.float32)
+    xm = rng.uniform(-1, 1, (a.shape[1], 5)).astype(np.float32)
+    xmd = torch.from_numpy(xm).to(dev)
+    y64 = torch.from_numpy(a.astype(np.float64) @ xm.astype(np.float64))
+    row_abs = torch.from_numpy(abs(a).astype(np.float64) @ np.abs(xm).astype(np.float64))
+    lim = FLOAT_RTOL * row_abs + 1e-30
+    a5 = build_csr5(a, device=dev)
+    y_k = csr5_kernel.csr5_spmm_cuda(a5, xmd)
+    yk, yp = y_k.double().cpu(), csr5_spmm_torch(a5, xmd).double().cpu()
+    ok = bool(((yk - yp).abs() <= lim).all() and ((yk - y64).abs() <= lim).all())
+    failed += [] if ok else ["K2 random_floats"]
+    say(f"[K2 random_floats rtol={FLOAT_RTOL} of row |A||X|] {'PASS' if ok else 'FAIL'} "
+        f"max|k-plain|/rowabs={float(((yk - yp).abs() / row_abs).max()):.3g} "
+        f"max|k-f64|/rowabs={float(((yk - y64).abs() / row_abs).max()):.3g}")
+    y1 = torch.stack([csr5_kernel.csr5_spmv_cuda(a5, xmd[:, r].contiguous()) for r in range(5)], 1)
+    say(f"[K2 random_floats] columns bit-equal to K1 on each X[:, r]: {torch.equal(y1, y_k)}")
+    return failed
+
+
+def k7_sweep(dev, rng) -> list:
+    """K7 against its plain version on the card and scipy on phase 4's
+    shapes and the band-block test shapes: every R of K7_SWEEP_RHS (one
+    pass and two chunks), both layouts, "highest" and "default" on a
+    float32 plane and "default" on a bfloat16 plane, alpha = -1.75, exact
+    on integer data; then random floats in both modes (the tolerance at
+    K7_FLOAT_NOTE)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch import build_bandblock
+    from benchmark_spmv_using_csr5_tpu_torch.ops import bandmm_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops.bandmm import bandmm_spmm_torch
+    from benchmark_spmv_using_csr5_tpu_torch.ops.dia import CHUNK_ROWS
+    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+
+    alpha = -1.75
+    rmax = max(K7_SWEEP_RHS)
+    failed = []
     bb_cases = list(dia_cases(synth, sp, np, CHUNK_ROWS))
     rows = np.arange(300)
     bb_cases += [
@@ -620,7 +677,7 @@ def spmm_sweep(dev, rng) -> list:
                 continue
             errs = []
             for prec in precs:
-                for R in SWEEP_RHS:
+                for R in K7_SWEEP_RHS:
                     xr = xmd[:, :R].contiguous()
                     y_nr, y_rn = _both_layouts(bandmm_kernel.bandmm_spmm_cuda, bb, xr, alpha,
                                                precision=prec)
@@ -630,33 +687,31 @@ def spmm_sweep(dev, rng) -> list:
                         errs.append(f"{prec} R={R}")
             failed += [f"{tag} {e}" for e in errs]
             say(f"[{tag}] {'PASS' if not errs else 'FAIL ' + ','.join(errs)} {'/'.join(precs)} "
-                f"R {SWEEP_RHS} nr+rn K={bb.K} blocks={bb.num_blocks} nx_pad={bb.nx_pad} n={a.shape[1]}")
-    # random floats: K2 sums in K1's order, K7 in another than the plain bmm
+                f"R {K7_SWEEP_RHS} nr+rn K={bb.K} blocks={bb.num_blocks} nx_pad={bb.nx_pad} n={a.shape[1]}")
+    # random floats on a float32 plane (the bfloat16 gate keeps them there)
     a = sp.csr_matrix(synth.banded(20_000, 27)).astype(np.float32)
     a.data = rng.uniform(-1, 1, a.nnz).astype(np.float32)
     xm = rng.uniform(-1, 1, (a.shape[1], 5)).astype(np.float32)
     xmd = torch.from_numpy(xm).to(dev)
-    y64 = torch.from_numpy(a.astype(np.float64) @ xm.astype(np.float64))
-    row_abs = torch.from_numpy(abs(a).astype(np.float64) @ np.abs(xm).astype(np.float64))
-    lim = FLOAT_RTOL * row_abs + 1e-30
-    a5 = build_csr5(a, device=dev)
-    bb = build_bandblock(a, device=dev)  # the bfloat16 gate keeps these floats in float32
-    runs = {
-        "K2": (csr5_kernel.csr5_spmm_cuda(a5, xmd), csr5_spmm_torch(a5, xmd)),
-        "K7": (bandmm_kernel.bandmm_spmm_cuda(bb, xmd), bandmm_spmm_torch(bb, xmd)),
-    }
-    for k, (y_k, y_p) in runs.items():
-        y_k, y_p = y_k.double().cpu(), y_p.double().cpu()
-        ok = bool(((y_k - y_p).abs() <= lim).all() and ((y_k - y64).abs() <= lim).all())
-        if k == "K7":
+    bb = build_bandblock(a, device=dev)
+    as_bf16 = lambda v: torch.from_numpy(v).to(torch.bfloat16).double().numpy()  # noqa: E731
+    for prec in ("highest", "default"):
+        a_op, x_op = a.astype(np.float64), xm.astype(np.float64)
+        if prec == "default":  # the operands the products take
+            a_op.data, x_op = as_bf16(a.data), as_bf16(xm)
+        y64 = torch.from_numpy(a_op @ x_op)
+        row_abs = torch.from_numpy(abs(a_op) @ np.abs(x_op))
+        lim = FLOAT_RTOL * row_abs + 1e-30
+        y_nr, y_rn = _both_layouts(bandmm_kernel.bandmm_spmm_cuda, bb, xmd, 1.0, precision=prec)
+        y_p = bandmm_spmm_torch(bb, xmd, 1.0, prec).double().cpu()
+        for layout, y_k in (("nr", y_nr.double()), ("rn", y_rn.double())):
+            ok = bool(((y_k - y_p).abs() <= lim).all() and ((y_k - y64).abs() <= lim).all())
             ok = ok and bb.dtype == torch.float32
-        failed += [] if ok else [f"{k} random_floats"]
-        say(f"[{k} random_floats rtol={FLOAT_RTOL} of row |A||X|] {'PASS' if ok else 'FAIL'} "
-            f"max|k-plain|/rowabs={float(((y_k - y_p).abs() / row_abs).max()):.3g} "
-            f"max|k-f64|/rowabs={float(((y_k - y64).abs() / row_abs).max()):.3g}")
-    y1 = torch.stack([csr5_kernel.csr5_spmv_cuda(a5, xmd[:, r].contiguous()) for r in range(5)], 1)
-    say(f"[K2 random_floats] columns bit-equal to K1 on each X[:, r]: "
-        f"{torch.equal(y1, runs['K2'][0])}")
+            failed += [] if ok else [f"K7 random_floats {prec} {layout}"]
+            say(f"[K7 random_floats {prec} {layout} rtol={FLOAT_RTOL} of row |A||X|, {K7_FLOAT_NOTE[prec]}] "
+                f"{'PASS' if ok else 'FAIL'} "
+                f"max|k-plain|/rowabs={float(((y_k - y_p).abs() / row_abs).max()):.3g} "
+                f"max|k-f64|/rowabs={float(((y_k - y64).abs() / row_abs).max()):.3g}")
     return failed
 
 
@@ -758,16 +813,19 @@ def spmm_path(dev, failed, mix_hyb):
     return results, launches, err
 
 
-def spmm_crossover(dev, card, a5, dia, bb):
+def spmm_crossover(dev, card, kind, a5, dia, bb):
     """K2, K6 and K7 at R = 8 on the same banded500k matrix and X, K7 at
-    R = 16, in turns with their plain versions; device times."""
+    R = 16, in turns with their plain versions; device times, K7's beside
+    its bound at both R, cuSPARSE's SpMM at R = 16, and K7/K2 at R = 8."""
+    import numpy as np
+    import scipy.sparse as sp
     import torch
 
     from benchmark_spmv_using_csr5_tpu_torch.ops import bandmm_kernel, csr5_kernel, dia_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.bandmm import bandmm_spmm_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmm_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.dia import dia_spmm_torch
-    from benchmark_spmv_using_csr5_tpu_torch.utils import perf
+    from benchmark_spmv_using_csr5_tpu_torch.utils import perf, synth
 
     gen = torch.Generator(dev).manual_seed(0)
     x8 = torch.randint(1, 10, (a5.n, 8), dtype=torch.float32, device=dev, generator=gen)
@@ -791,9 +849,24 @@ def spmm_crossover(dev, card, a5, dia, bb):
     dev_us = {
         "k2": device_us(csr5_kernel.csr5_spmm_cuda, a5, x8, match="csr5_spmm_tile_kernel"),
         "k6": device_us(dia_kernel.dia_spmm_cuda, dia, x8, match="dia_spmm_kernel"),
-        "k7": device_us(bandmm_kernel.bandmm_spmm_cuda, bb, x8, match="bandmm_kernel"),
-        "k7_r16": device_us(bandmm_kernel.bandmm_spmm_cuda, bb, x16, match="bandmm_kernel"),
+        "k7": device_us(bandmm_kernel.bandmm_spmm_cuda, bb, x8, match=K7_KERNELS),
+        "k7_r16": device_us(bandmm_kernel.bandmm_spmm_cuda, bb, x16, match=K7_KERNELS),
     }
+    # cuSPARSE's SpMM at R = 16 on the same matrix and X (the yardstick)
+    band = library_csr(sp.csr_matrix(synth.banded(500_000, 27)).astype(np.float32), np.float32, dev)
+    mm = lambda A, v: A @ v  # noqa: E731
+    t["lib_r16"] = perf.benchmark(mm, band, x16, device=dev, num_run=100)
+    dev_us["lib_r16"] = device_us_per_call(mm, band, x16)
+    del band
+    # K7's bound at both R from this run's inputs (bf16 operands: the tensor
+    # cores' rate for the operations)
+    gbps = perf.device_hbm_gbps(kind)
+    for key, x in (("k7", x8), ("k7_r16", x16)):
+        R = x.shape[1]
+        t[f"{key}_bound"], t[f"{key}_bound_by"] = bound_ms(
+            perf.streamed_bytes(bb, x, R), 2 * bb.dense.numel() * R, gbps, PEAK_FLOPS["bfloat16"])
+        t[f"{key}_us"] = dev_us[key]
+    t["lib_r16_us"] = dev_us["lib_r16"]
     mb = {
         "k2": (a5.col_idx_tiles.numel() * 4 + a5.val_tiles.numel() * a5.val_tiles.element_size()) / 1e6,
         "k6": dia.data.numel() * dia.data.element_size() / 1e6,
@@ -805,11 +878,20 @@ def spmm_crossover(dev, card, a5, dia, bb):
         f"{csr5_kernel.spmm_mode(a5, 8)}) {t['k2']:.5f} ms, "
         f"K6 (DIA, {mb['k6']:.1f} MB plane) {t['k6']:.5f} ms, K7 (band-block, "
         f"{str(bb.dtype).removeprefix('torch.')} plane of {mb['k7']:.1f} MB, K={bb.K}) "
-        f"{t['k7']:.5f} ms; R=16: K7 {t['k7_r16']:.5f} ms; plain K2 {t['k2_plain']:.4f}, "
-        f"K6 {t['k6_plain']:.4f}, K7 {t['k7_plain']:.4f} (R=16 {t['k7_r16_plain']:.4f}) ms; "
-        f"X and Y 16.0 MB each at R=8 [{card}]")
+        f"{t['k7']:.5f} ms; R=16: K7 {t['k7_r16']:.5f} ms, cuSPARSE {t['lib_r16']:.5f} ms; "
+        f"plain K2 {t['k2_plain']:.4f}, K6 {t['k6_plain']:.4f}, K7 {t['k7_plain']:.4f} "
+        f"(R=16 {t['k7_r16_plain']:.4f}) ms; X and Y 16.0 MB each at R=8 [{card}]")
     say("[banded500k SpMM device time by torch.profiler, us per launch] " + ", ".join(
         f"{k} {'not measured' if v is None else f'{v:.2f}'}" for k, v in dev_us.items()))
+    for key, R in (("k7", 8), ("k7_r16", 16)):
+        us, b_us = dev_us[key], t[f"{key}_bound"] * 1e3
+        share = "not measured" if us is None else f"{100 * b_us / us:.1f} % of it"
+        say(f"[K7 R={R}, {card}] device {'not measured' if us is None else f'{us:.2f}'} us, "
+            f"bound {b_us:.2f} us ({t[f'{key}_bound_by']}), {share}")
+    ratio = (f"{dev_us['k7'] / dev_us['k2']:.4f}" if dev_us["k7"] and dev_us["k2"]
+             else "not measured")
+    say(f"[K7/K2 at R=8, banded500k, {card}] {t['k7'] / t['k2']:.4f} per call (event loop), "
+        f"{ratio} in device time; --format auto --spmm 8 picks bandblock (K7)")
     return t, x8
 
 
@@ -1086,8 +1168,8 @@ def yardstick(dev, card, kind, df64, a64, mats):
     a5, X = mats["csr5_spmm"]
     out["csr5_spmm"] = bound_ms(sb(a5, X, R), 2 * a5.nnz * R, gbps, f32) + (lib["spmm8_f32"],)
     bb, X = mats["bandmm_spmm"]
-    out["bandmm_spmm"] = bound_ms(sb(bb, X, R), 2 * bb.dense.numel() * R, gbps, f32) + (
-        lib["spmm8_f32"],)
+    out["bandmm_spmm"] = bound_ms(sb(bb, X, R), 2 * bb.dense.numel() * R, gbps,
+                                  PEAK_FLOPS["bfloat16"]) + (lib["spmm8_f32"],)
     say(f"[df64_banded500k K4, {card}] turns (ms per call, event loop): "
         + ", ".join(f"{k} {v}" for k, v in times.items())
         + f"; K4 {k4_ms:.5f} ms, device {dev_us['k4']} us, bound {out['csr5_spmv_f64'][0] * 1e3:.2f} us "
@@ -2097,7 +2179,7 @@ def main() -> int:
         return 1
 
     # --- 9. K2 vs K6 vs K7 at banded500k, device times -------------------------
-    t2, x8 = spmm_crossover(dev, card, spmm["spmm8_banded500k"].matrix, fmt["dia_spmm8"].matrix,
+    t2, x8 = spmm_crossover(dev, card, kind, spmm["spmm8_banded500k"].matrix, fmt["dia_spmm8"].matrix,
                             spmm["bandblock_spmm8"].matrix)
 
     # --- 10. K4 vs plain vs scipy float64 on the odd shapes --------------------
@@ -2199,8 +2281,11 @@ def main() -> int:
               max(fmt_err["dia_spmm"], spmm_err["dia_spmm"]), t["k6"], t["k6_plain"]),
         entry("csr5_spmm", K2_SOURCE, K2_REPLACES, spmm_launches["csr5_spmm"],
               spmm_err["csr5_spmm"], t2["k2"], t2["k2_plain"]),
-        entry("bandmm_spmm", K7_SOURCE, K7_REPLACES, spmm_launches["bandmm_spmm"],
-              spmm_err["bandmm_spmm"], t2["k7"], t2["k7_plain"]),
+        dict(entry("bandmm_spmm", K7_SOURCE, K7_REPLACES, spmm_launches["bandmm_spmm"],
+                   spmm_err["bandmm_spmm"], t2["k7"], t2["k7_plain"]),
+             device_us=t2["k7_us"], ms_r16=t2["k7_r16"], device_us_r16=t2["k7_r16_us"],
+             plain_ms_r16=t2["k7_r16_plain"], bound_ms_r16=t2["k7_r16_bound"],
+             library_ms_r16=t2["lib_r16"]),
         entry("csr5_spmv_f64", K4_SOURCE, K4_REPLACES, f64_launches["csr5_spmv_f64"], f64_err,
               k4_ms, k4_plain_ms),
     ]}))
