@@ -41,11 +41,11 @@ import scipy.sparse as sp
 import torch
 
 from ..config import AUTO_TUNED_SIGMA, DEFAULT_DEVICE, CSR5Config, compute_sigma, resolve_device
-from ..ops import bandmm, bandmm_kernel, bigslice, bigslice_kernel, convert, csr5_f64, csr5_kernel, dia_kernel
+from ..ops import bandmm, bigslice, convert
 from ..ops.csr5_spmv import csr5_spmm, csr5_spmv
 from ..ops.dia import build_dia, dia_spmm, dia_spmm_supported, dia_spmv, dia_supported
 from ..ops.hyb import build_hyb, hyb_spmv
-from ..utils import perf, progress
+from ..utils import graphs, perf, progress
 
 #: warmup runs before the timed loop (main.cu:85-92)
 WARMUP = 50
@@ -133,17 +133,7 @@ class BenchResult:
 
 def kernel_launches() -> dict:
     """The launch counters of the port's kernels, by kernel name."""
-    return {
-        "csr5_spmv": csr5_kernel.launches,
-        "csr5_spmv_packed": csr5_kernel.packed_launches,
-        "csr5_sliced": bigslice_kernel.launches,
-        "csr5_spmv_f64": csr5_f64.launches,
-        "csr5_spmm": csr5_kernel.spmm_launches,
-        "csr5_spmm_packed": csr5_kernel.spmm_packed_launches,
-        "dia_spmv": dia_kernel.spmv_launches,
-        "dia_spmm": dia_kernel.spmm_launches,
-        "bandmm_spmm": bandmm_kernel.launches,
-    }
+    return graphs.read_launches()
 
 
 def _since(before: dict) -> dict:

@@ -1,6 +1,5 @@
-// Row ends of a CSR5 tile, the streaming plane load and the one-time
-// shared-memory grant of a kernel, shared by K2/K2p (csr5_spmm.cu) and K4
-// (csr5_spmv_f64.cu).
+// Row ends of a CSR5 tile and the streaming plane load, shared by K2/K2p
+// (csr5_spmm.cu) and K4 (csr5_spmv_f64.cu).
 //
 // The window pass of a (sigma, 128) tile reads the tile prefix only at the
 // positions win_map names: the last element of each window slot's row,
@@ -20,8 +19,6 @@
 // took sigma * 128 * 2 B (6 KB at sigma = 24).
 
 #pragma once
-
-#include <atomic>
 
 #include "csr5_tile.cuh"
 
@@ -115,32 +112,6 @@ __device__ __forceinline__ int end_index(int32_t word, const uint32_t* mask,
     const int sub = word & kSubMask;
     const int i = (sub >> 5) * kLanes + lane_of(word);
     return wbase[i] + __popc(mask[i] & ((1u << (sub & 31)) - 1u));
-}
-
-// Lets Kernel take as much dynamic shared memory as a block of this device
-// can have beside its static shared memory. A launch above 48 KB needs it;
-// it is set once per kernel and device, not on every launch.
-template <auto Kernel>
-cudaError_t grant_smem(size_t need) {
-    constexpr int kMaxDevices = 64;
-    static std::atomic<unsigned long long> granted{0};
-    if (need <= 48 * 1024) return cudaSuccess;
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned long long bit = dev < kMaxDevices ? 1ull << dev : 0ull;
-    if (bit && (granted.load() & bit)) return cudaSuccess;
-    int optin = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, Kernel);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - (int)attr.sharedSizeBytes);
-    if (err != cudaSuccess) return err;
-    granted.fetch_or(bit);
-    return cudaSuccess;
 }
 
 }  // namespace csr5

@@ -108,8 +108,7 @@ int csr5_sliced_spmv(const void* table, int nslices, int total_tiles, const void
                      int sigma, void* stream) {
     if (total_tiles <= 0 || nslices <= 0) return 0;
     const size_t smem = (size_t)(sigma + 1) * kLanes * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        csr5_sliced_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = grant_smem<&csr5_sliced_kernel>(smem);
     if (err != cudaSuccess) return (int)err;
     csr5_sliced_kernel<<<total_tiles, kLanes, smem, (cudaStream_t)stream>>>(
         (const SliceDesc*)table, nslices, (const float*)x, (float*)y, sigma);

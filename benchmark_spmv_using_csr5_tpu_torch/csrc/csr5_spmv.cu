@@ -28,6 +28,10 @@
 // order of those additions changes from run to run; on integer-valued
 // data every partial sum is an integer below 2^24 and the result is exact.
 //
+// The dynamic shared-memory limit is granted once per kernel instance and
+// device (grant_smem), and only above 48 KB: a launch is then nothing but
+// the launch, as a captured CUDA graph of a solver needs.
+//
 // Deferred: vectorised or TMA loads, and several tiles per block.
 
 #include "csr5_tile.cuh"
@@ -88,9 +92,7 @@ int launch(const void* col, const void* val, const void* win_map,
            int capw, int win_rel, void* stream) {
     if (p <= 0) return 0;
     const size_t smem = (size_t)(sigma + 1) * kLanes * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        csr5_spmv_tile_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const cudaError_t err = grant_smem<&csr5_spmv_tile_kernel<V>>(smem);
     if (err != cudaSuccess) return (int)err;
     csr5_spmv_tile_kernel<V><<<p, kLanes, smem, (cudaStream_t)stream>>>(
         (const int32_t*)col, (const V*)val, (const int32_t*)win_map,
@@ -105,9 +107,7 @@ int launch_packed(const void* colp, const void* val, const void* win_map,
                   int p, int sigma, int capw, int win_rel, int pmax, void* stream) {
     if (p <= 0) return 0;
     const size_t smem = (size_t)(sigma + 1) * kLanes * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        csr5_spmv_packed_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const cudaError_t err = grant_smem<&csr5_spmv_packed_kernel<V>>(smem);
     if (err != cudaSuccess) return (int)err;
     csr5_spmv_packed_kernel<V><<<p, kLanes, smem, (cudaStream_t)stream>>>(
         (const int32_t*)colp, (const V*)val, (const int32_t*)win_map,

@@ -21,6 +21,9 @@
 // shared memory, and it would then order every load after the previous
 // prefix store.
 //
+// grant_smem, the one-time grant of dynamic shared memory past 48 KB, serves
+// every CSR5 kernel (K1, K1p, K2, K2p, K3, K4).
+//
 // __fmul_rn/__fadd_rn keep each product rounded on its own, as the plain
 // version does (no fused multiply-add), and the prefix runs in s order in
 // both column modes, so K1p's y is bit-equal to K1's on the same tile.
@@ -30,6 +33,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace csr5 {
 
@@ -155,5 +160,30 @@ __device__ __forceinline__ void window_pass(const int32_t* __restrict__ wm, int 
     }
 }
 
+// Lets Kernel take as much dynamic shared memory as a block of this device
+// can have beside its static shared memory. A launch above 48 KB needs it;
+// it is set once per kernel and device, not on every launch.
+template <auto Kernel>
+cudaError_t grant_smem(size_t need) {
+    constexpr int kMaxDevices = 64;
+    static std::atomic<unsigned long long> granted{0};
+    if (need <= 48 * 1024) return cudaSuccess;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < kMaxDevices ? 1ull << dev : 0ull;
+    if (bit && (granted.load() & bit)) return cudaSuccess;
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, Kernel);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)attr.sharedSizeBytes);
+    if (err != cudaSuccess) return err;
+    granted.fetch_or(bit);
+    return cudaSuccess;
+}
 
 }  // namespace csr5

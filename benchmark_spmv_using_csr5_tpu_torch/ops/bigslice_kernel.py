@@ -61,8 +61,11 @@ def _table(sl: SlicedCSR5, device) -> tuple:
     addresses)."""
     who = "sliced_spmv_cuda"
     planes = tuple(
-        (a5.col_packed if a5.col_packed is not None else a5.col_idx_tiles).data_ptr()
+        t.data_ptr()
         for a5 in sl.slices
+        for t in (a5.col_packed if a5.col_packed is not None else a5.col_idx_tiles,
+                  a5.val_tiles, a5.win_map, a5.tile_ptr, a5.pages)
+        if t is not None
     )
     cached = sl.kernel_table
     if cached is not None and cached[3] == planes and cached[0].device == device:

@@ -58,7 +58,8 @@ def _plan(dia: DIAMatrix, who: str) -> tuple:
     arguments (data, offsets, then m, n, nd, m_pad, interleaved)."""
     d, offs = dia.data, dia.offsets_t
     p = dia.launch_plan
-    if p is not None and p[0] is d and p[1] is offs and p[5][0] == d.data_ptr():
+    if (p is not None and p[0] is d and p[1] is offs
+            and p[5][:2] == (d.data_ptr(), offs.data_ptr())):
         return p
     nd = dia.ndiag
     want = (dia.m_pad // LANES, nd, LANES) if dia.interleaved else (nd, dia.m_pad)

@@ -78,7 +78,20 @@ Phases, each of which must pass:
     setSigma, destroy), and the solvers on a 500,000-row SPD matrix:
     iterative refinement (K1 inner CG, K4 residual) to at most 1e-10
     relative residual and 10x below float32-only CG, with the launches of
-    K4 and K1 over that run;
+    K4 and K1 over that run; then all seven solvers as device programs
+    (one CUDA graph per solve, ``utils/graphs.py``): CG, iterative
+    refinement, BiCGSTAB, GMRES(20) x 5, Lanczos (30) and power iteration
+    (100) on that matrix, PageRank (50) on the example's 100,000-node
+    graph, CG on the Poisson example's 65,536-row Laplacian: the first
+    call eager, the second captured, then replays, each within
+    ``SOLVER_RTOL`` of the eager body (``__wrapped__``) on the same
+    inputs, other inputs too; one replay's K1/K4 kernels by torch.profiler
+    equal to the launches an eager run's wrappers count, one capture per
+    solver; eager, first-call, capture-call and replay ms, and that
+    replay's kernel time with its idle share; then twenty solves with a
+    new lambda each, and a kept callable dropped after its capture, leave
+    the card's allocated memory where it was. Replays are left out of the
+    kernels line's launches, which count launches at a wrapper;
 12. K4 at df64_banded500k in turns with cuSPARSE's float64 SpMV (k4,
     lib, lib, k4; the ratio printed) and with its plain version, its device
     time, the library yardstick (``torch.sparse_csr_tensor @ x``, cuSPARSE
@@ -206,6 +219,11 @@ K7_FLOAT_NOTE = {
 #: products per tile), the classical bound of a prefix sum of T terms,
 #: which both K4's lane scan and the plain version's cumsum meet
 K4_ULP = 2.0**-53
+#: a solver's replay against its eager body (``__wrapped__``) on the same
+#: inputs, relative to the largest entry of each output held: the two run
+#: the same kernels, but K1 and K4 add a row's partial sums with float
+#: atomics, whose order may change between runs
+SOLVER_RTOL = {"float32": 1e-5, "float64": 1e-12}
 
 
 def say(msg: str) -> None:
@@ -908,7 +926,7 @@ def f64_sweep(dev, rng) -> list:
     from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5
     from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
-    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import graphs, synth
 
     f64 = torch.float64
     failed = []
@@ -950,12 +968,14 @@ def f64_sweep(dev, rng) -> list:
     return failed
 
 
-def f64_path(dev, failed):
+def f64_path(dev, card, failed):
     """The float64 path at full width: ``--dtype float64`` through the
     CLI on example.mtx, banded500k and df64_banded500k, the SpMVHandle at
     banded500k in float32 and float64, and the solvers on a 500,000-row
     SPD matrix (iterative refinement: K1 inner CG, K4 residual; CG on
-    K1). Every kernel count is set to 0 just before and read just after.
+    K1), then all seven solvers as device programs
+    (:func:`solver_programs`). Every kernel count is set to 0 just before
+    and read just after.
     Returns (CLI results by name, launches, max |K4 - plain|, the df64
     matrix)."""
     import numpy as np
@@ -966,7 +986,7 @@ def f64_path(dev, failed):
     from benchmark_spmv_using_csr5_tpu_torch.bench import cli
     from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64, csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
-    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import graphs, synth
 
     f64 = torch.float64
     df64 = synth.f64_banded(500_000, 27)
@@ -1037,8 +1057,14 @@ def f64_path(dev, failed):
         f"CG (K1, 300 iterations, {k1_cg} K1 launches) relative residual {res32:.3e} in {cg_s:.3f} s; "
         f"iterative refinement (5 x 50, K1 inner, K4 residual: {k1_ir} K1 and {k4_ir} K4 launches) "
         f"{res_ir:.3e} (scipy: {res_ir_scipy:.3e}) in {ir_s:.3f} s; limit 1e-10 and 10x below CG")
+    credited0 = dict(graphs.credited)
+    solver_programs(dev, card, spd, a32, a64, failed)
     torch.cuda.synchronize()
-    launches = {"csr5_spmv": csr5_kernel.launches, "csr5_spmv_f64": csr5_f64.launches}
+    torch.cuda.empty_cache()
+    # the kernels line counts launches at a wrapper: the replays' credited
+    # launches stay out (phase 11 holds them against the profiler instead)
+    launches = {k: mod.launches - graphs.credited.get(k, 0) + credited0.get(k, 0)
+                for k, mod in (("csr5_spmv", csr5_kernel), ("csr5_spmv_f64", csr5_f64))}
 
     # the CLI runs: checks, K4 against its plain version on the same x
     err = 0.0
@@ -1076,6 +1102,270 @@ def f64_path(dev, failed):
         if v == 0:
             failed.append(f"no {k} launch on the float64 path")
     return results, launches, err, df64
+
+
+def _device_window(call):
+    """One call of ``call`` under torch.profiler: (device µs by kernel
+    name, activities by kernel name, busy µs, span µs from the first
+    device activity to the last, number of activities), or None when the
+    profiler shows no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    evs = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start
+    )
+    if not evs:
+        return None
+    by_name, counts, busy = {}, {}, 0.0
+    lo, hi = evs[0][0], evs[0][1]
+    for t0, t1, name in evs:
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+        counts[name] = counts.get(name, 0) + 1
+        if t0 > hi:
+            busy += hi - lo
+            lo, hi = t0, t1
+        else:
+            hi = max(hi, t1)
+    busy += hi - lo
+    return by_name, counts, busy, max(t1 for _, t1, _ in evs) - evs[0][0], len(evs)
+
+
+#: launch counter -> the name of its kernel in a profiler trace, for the
+#: kernels the solvers run (K1, K1p, K4)
+SOLVER_KERNELS = {
+    "csr5_spmv": "csr5_spmv_tile_kernel",
+    "csr5_spmv_packed": "csr5_spmv_packed_kernel",
+    "csr5_spmv_f64": "csr5_spmv_f64_tile_kernel",
+}
+
+
+def solver_programs(dev, card, spd, a32, a64, failed) -> dict:
+    """Phase 11's seven solvers as device programs at full width: CG (300
+    iterations), iterative refinement (5 x 50: K1 inner CG, K4 residual),
+    BiCGSTAB (50), GMRES(20) x 5, Lanczos (30) and power iteration (100)
+    on the phase's SPD matrix through K1 (and K4), PageRank (50) on the
+    example's 100,000-node graph, and CG (300) on the Poisson example's
+    65,536-row Laplacian, where K1 is short. Each runs its eager body
+    (``__wrapped__``) three times; then through the decorated solver a
+    first call (the eager body, no capture), a second (warm-up, capture,
+    replay), five replays, one replay under torch.profiler, and one call
+    on other inputs (a replay that must read the refilled buffers). Each
+    call must lie within :data:`SOLVER_RTOL` of the eager body on the
+    same inputs, the solver capture once, and the profiled replay run as
+    many K1/K4 kernels as the eager run's wrappers counted. Then twenty
+    solves with a new ``lambda`` each, and one kept callable dropped after
+    its capture, must leave ``torch.cuda.memory_allocated()`` where it
+    was. Prints each one's ms (eager, first call, capture call, replay
+    median of 5) and the profiled replay's kernel time with its idle share
+    against the replay's CUDA-event time. Returns the numbers by
+    solver."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch import build_csr5, csr5_spmv, solvers
+    from benchmark_spmv_using_csr5_tpu_torch.utils import graphs
+
+    n = spd.shape[0]
+    pt = _load_example("pagerank_torch").transition_matrix(100_000)
+    g5 = build_csr5((pt.indptr, pt.indices, pt.data, pt.shape), device=dev)
+    lap = _load_example("poisson_cg_torch").laplacian_2d(256)
+    l5 = build_csr5((lap.indptr, lap.indices, lap.data, lap.shape), device=dev)
+    lo = lambda v: csr5_spmv(a32, v)  # noqa: E731
+    hi = lambda v: csr5_spmv(a64, v)  # noqa: E731
+    walk = lambda v: csr5_spmv(g5, v)  # noqa: E731
+    poisson = lambda v: csr5_spmv(l5, v)  # noqa: E731
+    b64 = torch.ones(n, dtype=torch.float64, device=dev)
+    b32 = b64.float()
+    b_lap = torch.ones(lap.shape[0], device=dev)
+    vrng = np.random.default_rng(3)
+    v0s = [torch.from_numpy(vrng.uniform(-1, 1, n).astype(np.float32)).to(dev) for _ in range(2)]
+
+    def start(seed):
+        return torch.randn(n, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+    def ritz(al, be):
+        T = torch.diag(al) + torch.diag(be[:-1], 1) + torch.diag(be[:-1], -1)
+        return al, be, torch.linalg.eigvalsh(T)
+
+    S = solvers
+    # name, program, decorated call (input), eager call (input), the inputs
+    # (the second for the refill check), outputs held (names by index)
+    runs = [
+        ("conjugate_gradient", S.conjugate_gradient,
+         lambda b: S.conjugate_gradient(lo, b, iters=300),
+         lambda b: S.conjugate_gradient.__wrapped__(lo, b, 300), (b32, b32 * 0.5 + 1), ("x",)),
+        ("iterative_refinement", S.iterative_refinement,
+         lambda b: S.iterative_refinement(lo, hi, b, outer_iters=5, inner_iters=50),
+         lambda b: S.iterative_refinement.__wrapped__(lo, hi, b, 5, 50), (b64, b64 * 0.5 + 1),
+         ("x",)),
+        ("bicgstab", S.bicgstab, lambda b: S.bicgstab(lo, b, iters=50),
+         lambda b: S.bicgstab.__wrapped__(lo, b, 50), (b32, b32 * 0.5 + 1), ("x",)),
+        ("gmres", S.gmres, lambda b: S.gmres(lo, b, restart=20, outer_iters=5),
+         lambda b: S.gmres.__wrapped__(lo, b, 20, 5), (b32, b32 * 0.5 + 1), ("x",)),
+        ("lanczos", S.lanczos_loop, lambda v: S.lanczos(lo, v, iters=30),
+         lambda v: ritz(*S.lanczos_loop.__wrapped__(lo, v, 30)), v0s,
+         ("alphas", "betas", "eigvals")),
+        ("power_iteration", S.power_iteration_loop,
+         lambda seed: S.power_iteration(lo, n, iters=100,
+                                        generator=torch.Generator().manual_seed(seed), device=dev),
+         lambda seed: S.power_iteration_loop.__wrapped__(lo, start(seed), 100), (0, 1),
+         ("lambda", "v")),
+        # PageRank takes no tensor: there is no buffer to refill
+        ("pagerank", S.pagerank,
+         lambda _: S.pagerank(walk, pt.shape[0], damping=0.85, iters=50, device=dev),
+         lambda _: S.pagerank.__wrapped__(walk, pt.shape[0], 0.85, 50, torch.float32, dev),
+         (None,), ("r",)),
+        ("conjugate_gradient_poisson65k", S.conjugate_gradient,
+         lambda b: S.conjugate_gradient(poisson, b, iters=300),
+         lambda b: S.conjugate_gradient.__wrapped__(poisson, b, 300), (b_lap, b_lap * 0.5 + 1),
+         ("x",)),
+    ]
+
+    def timed(call, arg):
+        """(outputs, host ms, device ms between CUDA events, launches) of
+        one call."""
+        torch.cuda.synchronize()
+        before = graphs.read_launches()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        out = call(arg)
+        ev1.record()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out = out if isinstance(out, tuple) else (out,)
+        return out, ms, ev0.elapsed_time(ev1), graphs.launches_between(before, graphs.read_launches())
+
+    def rel_errs(out, ref, held):
+        errs = {}
+        for i, label in enumerate(held):
+            scale = float(ref[i].abs().max())
+            errs[label] = float((out[i] - ref[i]).abs().max()) / scale if scale else 0.0
+        finite = all(bool(torch.isfinite(o).all()) and o.shape == r.shape for o, r in zip(out, ref))
+        return errs, finite
+
+    report, out2, ref2 = {}, None, None
+    for name, prog, decorated, eager, inputs, held in runs:
+        eager_ms = []
+        for _ in range(3):
+            ref, ms, _, eager_n = timed(eager, inputs[0])
+            eager_ms.append(ms)
+        size0 = prog.cache_size()
+        out, first_ms, _, first_n = timed(decorated, inputs[0])
+        errs_first, finite = rel_errs(out, ref, held)
+        first_captured = prog.cache_size() - size0
+        _, capture_ms, _, _ = timed(decorated, inputs[0])
+        replay_ms, replay_ev = [], []
+        for _ in range(5):
+            out, ms, ev_ms, replay_n = timed(decorated, inputs[0])
+            replay_ms.append(ms)
+            replay_ev.append(ev_ms)
+        captures = prog.cache_size() - size0
+        errs, finite_r = rel_errs(out, ref, held)
+        dtype = str(out[0].dtype).removeprefix("torch.")
+        rtol = SOLVER_RTOL[dtype]
+        win = _device_window(lambda: decorated(inputs[0]))
+        refill = None
+        if len(inputs) > 1:
+            # other inputs: the replay must read them from the refilled
+            # buffers (its result moves) and match the eager body on them
+            out2, _, _, _ = timed(decorated, inputs[1])
+            ref2, _, _, _ = timed(eager, inputs[1])
+            refill, finite2 = rel_errs(out2, ref2, held)
+            moved = any(float((o - r).abs().max()) > 0 for o, r in zip(out2, ref))
+            refill_ok = (finite2 and moved and all(e <= rtol for e in refill.values())
+                         and prog.cache_size() - size0 == 1)
+        measured = None
+        if win is not None:
+            measured = {c: sum(k for nm, k in win[1].items() if SOLVER_KERNELS.get(c, "\0") in nm)
+                        for c in eager_n}
+        ok = (finite and finite_r and all(e <= rtol for e in (*errs.values(), *errs_first.values()))
+              and first_captured == 0 and first_n == eager_n and captures == 1
+              and measured == eager_n and eager_n.get("csr5_spmv", 0) > 0
+              and (name != "iterative_refinement" or eager_n.get("csr5_spmv_f64", 0) > 0)
+              and (refill is None or refill_ok))
+        failed += [] if ok else [f"solver {name}"]
+        rep = {"dtype": dtype, "rel_err": errs, "rel_err_first_call": errs_first, "rtol": rtol,
+               "rel_err_refill": refill, "launches_eager": eager_n, "launches_first_call": first_n,
+               "launches_replay_profiled": measured, "launches_replay_credited": replay_n,
+               "captures": captures, "eager_ms": eager_ms, "first_ms": first_ms,
+               "capture_ms": capture_ms, "replay_ms": replay_ms,
+               "replay_median_ms": float(np.median(replay_ms)),
+               "replay_event_ms": float(np.median(replay_ev)),
+               "eager_median_ms": float(np.median(eager_ms))}
+        if win is None:
+            dev_txt = "device time not measured (the profiler showed no device activity)"
+        else:
+            # the idle share is taken against the replay's own device time
+            # (CUDA events, no profiler): tracing stretches the gaps between
+            # a graph's kernels, so the profiler's span reads high
+            by_name, _, busy, span, count = win
+            k1 = sum(v for k, v in by_name.items() if SOLVER_KERNELS["csr5_spmv"] in k)
+            k4 = sum(v for k, v in by_name.items() if SOLVER_KERNELS["csr5_spmv_f64"] in k)
+            idle = 1.0 - busy / (1e3 * rep["replay_event_ms"])
+            rep.update(kernel_us=sum(by_name.values()), k1_us=k1, k4_us=k4, busy_us=busy,
+                       profiler_span_us=span, activities=count, idle_share=idle)
+            dev_txt = (f"one replay on the device: {count} activities, kernels {rep['kernel_us']:.1f} "
+                       f"µs (K1 {k1:.1f}, K4 {k4:.1f}), busy {busy:.1f} µs of the replay's "
+                       f"{rep['replay_event_ms']:.3f} ms by CUDA events: idle {100 * idle:.1f} % "
+                       f"(profiler span {span:.1f} µs)")
+        report[name] = rep
+        refill_txt = ("no tensor input to refill" if refill is None else
+                      "other inputs " + ", ".join(f"{k} {v:.3g}" for k, v in refill.items()))
+        say(f"[solver {name}, {dtype}] {'PASS' if ok else 'FAIL'}: vs eager body on the same inputs "
+            f"(of the largest entry, limit {rtol:g}): first call "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs_first.items()) + ", replay "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f", {refill_txt}; launches "
+            f"eager {eager_n}, first call {first_n}, profiled replay's kernels {measured}; "
+            f"{captures} capture; eager {rep['eager_median_ms']:.3f} ms, first call {first_ms:.3f} ms "
+            f"(eager), second call {capture_ms:.3f} ms (warm-up, capture, replay), replay "
+            f"{rep['replay_median_ms']:.3f} ms (median of 5: "
+            f"{', '.join(f'{t:.3f}' for t in replay_ms)}); {dev_txt} [{card}]")
+
+    # the cache's memory: a new lambda per solve never captures, and a kept
+    # callable's program (graph and pool) goes when the callable dies
+    cg = S.conjugate_gradient
+
+    def solve(spmv):  # its result dies with the call
+        cg(spmv, b32, iters=10)
+
+    del out, ref, out2, ref2  # the last solver's results, freed before m0
+    gc.collect()
+    torch.cuda.synchronize()
+    m0, size0 = torch.cuda.memory_allocated(dev), cg.cache_size()
+    for _ in range(20):
+        solve(lambda v: csr5_spmv(a32, v))
+    torch.cuda.synchronize()
+    m_fresh, size_fresh, seen = torch.cuda.memory_allocated(dev), cg.cache_size(), len(cg.cache.seen)
+    kept = lambda v: csr5_spmv(a32, v)  # noqa: E731
+    for _ in range(3):
+        solve(kept)
+    size_kept = cg.cache_size()
+    del kept
+    gc.collect()
+    torch.cuda.synchronize()
+    m_dropped, size_dropped = torch.cuda.memory_allocated(dev), cg.cache_size()
+    ok = (m_fresh == m0 and size_fresh == size0 and m_dropped == m0 and size_kept == size0 + 1
+          and size_dropped == size0)
+    failed += [] if ok else ["solver cache memory"]
+    say(f"[solver cache memory] {'PASS' if ok else 'FAIL'}: 20 CG solves with a new lambda each: "
+        f"memory allocated {m_fresh - m0:+d} B, programs {size_fresh - size0:+d}, {seen} keys noted "
+        f"once left; a kept lambda called 3 times: programs {size_kept - size0:+d}, then dropped with "
+        f"it: {size_dropped - size0:+d} programs, memory allocated {m_dropped - m0:+d} B")
+    report["cache_memory"] = {"fresh_bytes": m_fresh - m0, "dropped_bytes": m_dropped - m0}
+    say(json.dumps({"solvers": report}))
+    for _, prog, *_ in runs:
+        prog.cache_clear()
+    return report
 
 
 def library_csr(a, dtype, dev):
@@ -2189,7 +2479,7 @@ def main() -> int:
         return 1
 
     # --- 11. the float64 path at full width: CLI, handle, solvers ---------------
-    f64res, f64_launches, f64_err, df64 = f64_path(dev, failed)
+    f64res, f64_launches, f64_err, df64 = f64_path(dev, card, failed)
     if failed:
         print(f"chip_smoke: float64 path failed: {failed}", file=sys.stderr)
         return 1

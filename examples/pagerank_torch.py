@@ -26,18 +26,23 @@ from benchmark_spmv_using_csr5_tpu_torch.models import solvers  # noqa: E402
 from benchmark_spmv_using_csr5_tpu_torch.utils import synth  # noqa: E402
 
 
+def transition_matrix(n: int) -> sp.csr_matrix:
+    """The column-stochastic transition matrix P^T (rank flows along
+    P^T r) of a power-law graph of ``n`` nodes, mean out-degree 12."""
+    g = sp.csr_matrix(synth.power_law(n, n, 12.0, dtype=np.float32))
+    g.data[:] = 1.0
+    out_deg = np.maximum(np.asarray(g.sum(axis=1)).ravel(), 1.0)
+    return sp.csr_matrix((sp.diags(1.0 / out_deg) @ g).T).astype(np.float32)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("nodes", nargs="?", type=int, default=100_000)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     n = args.nodes
-    g = sp.csr_matrix(synth.power_law(n, n, 12.0, dtype=np.float32))
-    g.data[:] = 1.0
-    # column-stochastic transition matrix P^T (rank flows along P^T r)
-    out_deg = np.maximum(np.asarray(g.sum(axis=1)).ravel(), 1.0)
-    pt = sp.csr_matrix((sp.diags(1.0 / out_deg) @ g).T).astype(np.float32)
-    print(f"graph: n={n}, edges={g.nnz}, device {args.device}")
+    pt = transition_matrix(n)
+    print(f"graph: n={n}, edges={pt.nnz}, device {args.device}")
 
     a5 = build_csr5((pt.indptr, pt.indices, pt.data, pt.shape), device=args.device)
     spmv = lambda v: csr5_spmv(a5, v)  # noqa: E731
