@@ -51,7 +51,7 @@ from ..ops.csr5_spmv import csr5_spmm, csr5_spmv
 from ..ops.dia import build_dia, dia_spmv, dia_supported
 from ..ops.hyb import build_hyb, hyb_spmv
 from ..ops.select import apply_plan, select_format, select_plan
-from ..utils import mmio, nativelib, perf, progress, reorder, synth
+from ..utils import mmio, nativelib, perf, reorder, synth
 from ..utils.hostmem import arena_take
 from . import harness
 
@@ -599,7 +599,5 @@ def prewarm_arena(names) -> None:
         return
     for tag in ("cv:col_flat", "cv:val_flat", "cv:coltr", "cv:valtr"):
         arena_take(nnz_pad * 4, np.uint8, tag, zero=False)
-        progress.emit(f"prewarm:{tag}")
     for tag in ("cv:col16", "cv:pktr", "cv:valcast"):
         arena_take(nnz_pad * 2, np.uint8, tag, zero=False)
-        progress.emit(f"prewarm:{tag}")

@@ -45,7 +45,7 @@ from ..ops import bandmm, bigslice, convert
 from ..ops.csr5_spmv import csr5_spmm, csr5_spmv
 from ..ops.dia import build_dia, dia_spmm, dia_spmm_supported, dia_spmv, dia_supported
 from ..ops.hyb import build_hyb, hyb_spmv
-from ..utils import graphs, perf, progress
+from ..utils import graphs, perf
 
 #: warmup runs before the timed loop (main.cu:85-92)
 WARMUP = 50
@@ -132,7 +132,10 @@ class BenchResult:
 
 
 def kernel_launches() -> dict:
-    """The launch counters of the port's kernels, by kernel name."""
+    """The launch counters of the port's kernels, by kernel name: the
+    launches the wrappers enqueued, eagerly or into a captured graph. A
+    graph's replay adds nothing; what it runs is in its capture record
+    (``utils/trace.py::captures``)."""
     return graphs.read_launches()
 
 
@@ -178,19 +181,15 @@ def _measure(
     m, n = shape
     nnz = int(values.shape[0])
     before = kernel_launches()
-    progress.emit("convert")
     t0 = time.perf_counter()
     mat, sigma, storage, detail, phases = build()
     convert_ms = (time.perf_counter() - t0) * 1e3
 
-    progress.emit("check")
     xd = torch.from_numpy(x).to(device)
     y = fn(mat, xd)
     max_rel = rel_err(y, y_ref)
 
-    progress.emit("timing")
     spmv_ms = perf.benchmark(fn, mat, xd, device=device, warmup=WARMUP, num_run=num_run)
-    progress.emit("timing:done")
     on_card = device.type == "cuda"
     dev_name = torch.cuda.get_device_name(device) if on_card else "cpu"
     met = perf.spmv_metrics(
@@ -283,7 +282,6 @@ def run_benchmark(
     )
     x = np.random.default_rng(0).integers(1, 10, size=(n, R) if R > 1 else n)
     x = x.astype(values.dtype)
-    progress.emit("golden")
     y_ref = sp.csr_matrix((values, col_idx, row_ptr), shape=shape) @ x
 
     vdt = torch.float64 if values.dtype == np.float64 else "auto"
@@ -341,7 +339,6 @@ def run_dia(
     R = num_rhs
     x = np.random.default_rng(0).integers(1, 10, (shape[1], R) if R > 1 else shape[1])
     x = x.astype(values.dtype)
-    progress.emit("golden")
     y_ref = sp.csr_matrix((values, col_idx, row_ptr), shape=shape) @ x
 
     def build():
@@ -374,7 +371,6 @@ def run_hyb(
     _check_values(values, "hyb")
     device = resolve_device(device, "run_hyb")
     x = np.random.default_rng(0).integers(1, 10, shape[1]).astype(values.dtype)
-    progress.emit("golden")
     y_ref = sp.csr_matrix((values, col_idx, row_ptr), shape=shape) @ x
 
     def build():
@@ -406,7 +402,6 @@ def run_bandblock(
     device = resolve_device(device, "run_bandblock")
     R = max(num_rhs, 1)
     x = np.random.default_rng(0).integers(1, 10, (shape[1], R)).astype(values.dtype)
-    progress.emit("golden")
     y_ref = sp.csr_matrix((values, col_idx, row_ptr), shape=shape) @ x
 
     def build():

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, resolve_device
-from ..utils import nativelib, progress
+from ..utils import nativelib
 from ..utils.hostmem import arena_take
 from .convert import _as_host_csr, _bf16_roundtrip_exact
 from .dia import _on_cuda
@@ -152,7 +152,6 @@ def build_bandblock(
     last value, as the JAX fill does. Phases land in
     :data:`last_build_phases`."""
     device = resolve_device(device, "build_bandblock")
-    progress.emit("bandmm:build")
     ph = {}
     t = time.perf_counter()
     row_ptr, col_idx, values, (m, n) = _as_host_csr(csr)

@@ -33,7 +33,6 @@ import torch
 
 from ..config import AUTO_TUNED_SIGMA, DEFAULT_DEVICE, CSR5Config, compute_sigma, resolve_device
 from ..models.formats import CSR5Matrix, csr5_from_numpy, csr5_to_numpy
-from ..utils import progress
 from ..utils.hostmem import arena_take
 from . import convert
 from .convert import _as_host_csr, build_csr5
@@ -197,8 +196,7 @@ def build_csr5_sliced(
     row_starts = [0]
     col_starts = []
     phases: dict = {}
-    for si, (r0, r1, c0, c1) in enumerate(bounds):
-        progress.emit(f"slice:{si + 1}/{len(bounds)}")
+    for r0, r1, c0, c1 in bounds:
         k0, k1 = int(row_ptr[r0]), int(row_ptr[r1])
         rp = arena_take(r1 - r0 + 1, np.int64, "sl:rp", zero=False)
         np.subtract(row_ptr[r0 : r1 + 1], k0, out=rp)

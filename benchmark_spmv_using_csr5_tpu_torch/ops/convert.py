@@ -43,7 +43,7 @@ import torch
 
 from ..config import AUTO_TUNED_SIGMA, DEFAULT_DEVICE, CSR5Config, compute_sigma, resolve_device
 from ..models.formats import CSR5Matrix, CSRMatrix, col_tiles_of, decode_packed_codes
-from ..utils import nativelib, progress
+from ..utils import nativelib
 from ..utils.hostmem import arena_take
 
 #: columns per x-page of the JAX package's gather plan
@@ -226,7 +226,6 @@ class _Phases:
         now = time.perf_counter()
         self.ms[name] = self.ms.get(name, 0.0) + (now - self._t0) * 1e3
         self._t0 = now
-        progress.emit(f"convert:{name}")
 
 
 def _config_for(m: int, nnz: int, config: Optional[CSR5Config], sigma: int) -> CSR5Config:

@@ -37,13 +37,22 @@ there:
   keep the callables: when one dies, every entry that names it goes, a
   program with its graph and memory pool. A solver keeps at most
   :data:`MAX_PROGRAMS` programs, the least recently used dropped first.
-- **Launch counters.** During the capture the kernel wrappers run their
-  Python and add to their counters, but no kernel runs; during a replay
-  the kernels run and no Python does. So each graph records the launches
-  its capture counted (:func:`launches_between`), takes them back out of
-  the counters and adds them once per replay (:func:`add_launches`):
-  ``bench.harness.kernel_launches()`` keeps counting the kernels that ran.
-  What replays added is tallied apart in :data:`credited`.
+- **Launch counters and the capture record.** During the capture the
+  kernel wrappers run their Python and add to their counters, as they do
+  for an eager launch: the counters count what the wrappers enqueued,
+  eagerly or into a graph. A replay runs no Python, so it adds nothing.
+  What a replay runs on the device is in the program's capture record
+  (:func:`.trace.note_capture`, kept after the program is dropped): the
+  static inputs it copies, the graph's nodes by type (:func:`graph_nodes`,
+  read from the captured graph), the outputs it clones, the launches the
+  capture enqueued (:func:`launches_between`), and where each call of the
+  solver's operator (its SpMV) lies among the graph's device operations
+  (:class:`_Products`). The profiler is what counts the kernels that ran.
+  Where ``libcuda`` cannot be read, the record holds None there and the
+  solve goes on.
+- **Spans** (:mod:`.trace`, while a profiler records): ``csr5.solve``
+  around each call (its mode ``eager``, ``capture`` or ``replay`` and its
+  program id) and ``csr5.graph.launch`` around ``graph.replay()``.
 - **No fallback.** A capture or replay that fails raises; nothing is
   retried eagerly or moved to the CPU.
 
@@ -58,7 +67,9 @@ not as a replay).
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import inspect
@@ -66,10 +77,13 @@ import threading
 import types
 import weakref
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Iterator, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 from torch.overrides import TorchFunctionMode
+
+from . import trace
 
 #: counter name -> (module, attribute): the launch counter of each kernel
 Counters = Mapping[str, Tuple[Any, str]]
@@ -82,10 +96,6 @@ MAX_PROGRAMS = 4
 MAX_SEEN = 256
 
 _nesting = threading.local()
-#: the launches replays have added to the counters, by counter: no wrapper
-#: counted these, so ``read_launches()`` less ``credited`` is what the
-#: wrappers counted at a launch
-credited: Dict[str, int] = {}
 #: device index -> the stream programs warm up and capture on, one per
 #: device so cuBLAS allocates its workspace for it once
 _streams: Dict[int, torch.cuda.Stream] = {}
@@ -122,15 +132,106 @@ def launches_between(before: Mapping[str, int], after: Mapping[str, int]) -> Dic
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
-def add_launches(
-    delta: Mapping[str, int], times: int = 1, counters: Optional[Counters] = None
-) -> None:
-    """Add ``times`` x ``delta`` to the counters (``times = -1`` takes a
-    capture's counts back out; ``1`` credits one replay)."""
-    counters = kernel_counters() if counters is None else counters
-    for name, n in delta.items():
-        mod, attr = counters[name]
-        setattr(mod, attr, getattr(mod, attr) + times * n)
+#: CUDA's graph node types (``CUgraphNodeType``) by value
+NODE_TYPES = {
+    0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+    6: "wait_event", 7: "event_record", 8: "semaphore_signal", 9: "semaphore_wait",
+    10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op", 13: "conditional",
+}
+#: the node types that each run as one device operation
+DEVICE_OPS = ("kernel", "memcpy", "memset")
+_libcuda_lib: Any = None
+
+
+def _libcuda() -> Optional[ctypes.CDLL]:
+    """``libcuda`` with its graph queries typed, or None where it cannot be
+    loaded."""
+    global _libcuda_lib
+    if _libcuda_lib is None:
+        try:
+            lib = ctypes.CDLL("libcuda.so.1")
+        except OSError:
+            _libcuda_lib = False
+            return None
+        p, size_p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+        lib.cuGraphGetNodes.argtypes = [p, p, size_p]
+        lib.cuGraphNodeGetType.argtypes = [p, ctypes.POINTER(ctypes.c_int)]
+        if hasattr(lib, "cuStreamGetCaptureInfo_v2"):
+            lib.cuStreamGetCaptureInfo_v2.argtypes = [p, ctypes.POINTER(ctypes.c_int), p,
+                                                      ctypes.POINTER(p), p, p]
+        _libcuda_lib = lib
+    return _libcuda_lib or None
+
+
+def _node_types(graph: int, known: Optional[Dict[int, str]] = None) -> Optional[List[str]]:
+    """The type (:data:`NODE_TYPES`) of each node of the ``CUgraph``
+    ``graph``, through ``libcuda``'s ``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType``, or None where ``libcuda`` cannot say. ``known``
+    keeps the types read before, by node."""
+    lib = _libcuda()
+    if lib is None:
+        return None
+    handle, num = ctypes.c_void_p(graph), ctypes.c_size_t(0)
+    if lib.cuGraphGetNodes(handle, None, ctypes.byref(num)):
+        return None
+    nodes = (ctypes.c_void_p * num.value)()
+    if num.value and lib.cuGraphGetNodes(handle, nodes, ctypes.byref(num)):
+        return None
+    known = {} if known is None else known
+    kind = ctypes.c_int()
+    for node in nodes[: num.value]:
+        if node not in known:
+            if lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+                return None
+            known[node] = NODE_TYPES.get(kind.value, f"type_{kind.value}")
+    return [known[node] for node in nodes[: num.value]]
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> Optional[Dict[str, int]]:
+    """The nodes of a captured graph (kept with ``keep_graph=True``) by
+    type, read from the graph itself, or None where ``libcuda`` cannot say."""
+    kinds = _node_types(graph.raw_cuda_graph())
+    return None if kinds is None else dict(collections.Counter(kinds))
+
+
+class _Products:
+    """Where each call of a solver's operators (its callable arguments, the
+    SpMVs) lies in the graph ``stream`` captures: (first, end) positions
+    among the graph's device operations (:data:`DEVICE_OPS`, in the order
+    they were captured, which on one stream is the order they run), by
+    argument name. ``spans`` turns None where ``libcuda`` cannot say."""
+
+    def __init__(self, stream: torch.cuda.Stream):
+        self.stream = ctypes.c_void_p(stream.cuda_stream)
+        self.known: Dict[int, str] = {}
+        self.spans: Optional[Dict[str, List[Tuple[int, int]]]] = {}
+
+    def _ops(self) -> Optional[int]:
+        """The device operations captured so far."""
+        lib = _libcuda()
+        status, graph = ctypes.c_int(), ctypes.c_void_p()
+        if (lib is None or not hasattr(lib, "cuStreamGetCaptureInfo_v2")
+                or lib.cuStreamGetCaptureInfo_v2(self.stream, ctypes.byref(status), None,
+                                                 ctypes.byref(graph), None, None)
+                or not graph.value):
+            return None
+        kinds = _node_types(graph.value, self.known)
+        return None if kinds is None else sum(1 for k in kinds if k in DEVICE_OPS)
+
+    def marked(self, name: str, fn: Callable) -> Callable:
+        """``fn``, noting where each of its calls lies under ``name``."""
+
+        def call(*args, **kwargs):
+            first = self._ops() if self.spans is not None else None
+            out = fn(*args, **kwargs)
+            end = self._ops() if first is not None else None
+            if end is None:
+                self.spans = None
+            elif self.spans is not None:
+                self.spans.setdefault(name, []).append((first, end))
+            return out
+
+        return call
 
 
 def _inline() -> bool:
@@ -245,24 +346,39 @@ def _clone(out):
 @dataclasses.dataclass
 class _Program:
     """One captured solve: its graph, the static input buffers it reads
-    (by argument name), the outputs it writes (in its memory pool), the
-    kernel launches of one replay, and what its graph reads by address
-    (``keep``)."""
+    (by argument name), the outputs it writes (in its memory pool), its
+    capture record, and what its graph reads by address (``keep``)."""
 
     graph: torch.cuda.CUDAGraph
     inputs: Dict[str, torch.Tensor]
     outputs: Any
-    launches: Dict[str, int]
+    record: trace.Capture
     keep: tuple = ()
 
     def replay(self, arguments: Mapping[str, Any]):
         for k, buf in self.inputs.items():
             buf.copy_(arguments[k])
-        self.graph.replay()
-        add_launches(self.launches)
-        for k, n in self.launches.items():
-            credited[k] = credited.get(k, 0) + n
+        if trace.recording():
+            with trace.span("csr5.graph.launch", program=self.record.program):
+                self.graph.replay()
+        else:
+            self.graph.replay()
         return _clone(self.outputs)
+
+
+def _program(solver: str, loops: Mapping[str, int], graph, inputs: Dict[str, torch.Tensor],
+             outputs: Any, nodes: Optional[Dict[str, int]], launches: Dict[str, int],
+             products: Optional[Mapping[str, Sequence[Tuple[int, int]]]] = None,
+             keep: tuple = ()) -> _Program:
+    """A program and its capture record: the copies, nodes and clones of
+    one replay, the launches its capture enqueued and where its operators'
+    calls lie."""
+    record = trace.note_capture(
+        solver=solver, loops=dict(loops), inputs=len(inputs),
+        outputs=sum(1 for t in _tensors(outputs) if t.numel()), nodes=nodes,
+        launches=dict(launches),
+        products=None if products is None else {k: tuple(v) for k, v in products.items()})
+    return _Program(graph, inputs, outputs, record, keep)
 
 
 def _stream(dev: torch.device) -> torch.cuda.Stream:
@@ -283,20 +399,21 @@ def _capture(body: Callable, arguments: Dict[str, Any], loops: Sequence[str],
     with _nested():
         with torch.cuda.stream(stream):
             body(**warm)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = read_launches()
-        reads = _Reads()
-        try:
-            with torch.cuda.graph(graph, stream=stream), reads:
-                outputs = body(**call)
-        finally:
-            counted = launches_between(before, read_launches())
-            add_launches(counted, -1)  # the capture ran nothing
+        reads, products = _Reads(), _Products(stream)
+        marked = {k: products.marked(k, v) for k, v in call.items() if callable(v)}
+        with torch.cuda.graph(graph, stream=stream), reads:
+            outputs = body(**{**call, **marked})
+        counted = launches_between(before, read_launches())
+    nodes = graph_nodes(graph)
+    graph.instantiate()
     # a callable stays out (its death drops the program) unless it cannot
     # be watched; the objects it refers to stay in, so no key's ids recur
     fns = [v for v in arguments.values() if callable(v)]
     keep = (*(r for fn in fns for r in referents(fn)), *(fn for fn in fns if not _watchable(fn)))
-    return _Program(graph, inputs, outputs, counted, (*keep, *reads.read.values()))
+    return _program(body.__name__, {k: call[k] for k in loops}, graph, inputs, outputs, nodes,
+                    counted, products.spans, (*keep, *reads.read.values()))
 
 
 def _watchable(obj: Any) -> bool:
@@ -376,26 +493,39 @@ def device_program(*, loops: Sequence[str] = ()) -> Callable:
             with _nested():
                 return body(*args, **kwargs)
 
+        def solve(arguments, dev, on_card, args, kwargs, attrs=None):
+            prog, mode = None, "eager"
+            if on_card:
+                key = _key(arguments)
+                prog = cache.get(key)
+                if prog is not None:
+                    mode = "replay"
+                elif not cache.first_call(key, [v for v in arguments.values() if callable(v)]):
+                    mode = "capture"
+            if attrs is not None:
+                attrs.update(mode=mode, program=None)
+            if mode == "eager":
+                return eager(*args, **kwargs)
+            with torch.cuda.device(dev):
+                if mode == "capture":
+                    prog = cache.put(key, _capture(body, arguments, loops, dev))
+                if attrs is not None:
+                    attrs["program"] = prog.record.program
+                return prog.replay(arguments)
+
         @functools.wraps(body)
         def run(*args, **kwargs):
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
             arguments = dict(bound.arguments)
             dev = _device_of(arguments)
-            if dev.type != "cuda" or not torch.cuda.is_available():
-                return eager(*args, **kwargs)
-            if _inline():
+            on_card = dev.type == "cuda" and torch.cuda.is_available()
+            if on_card and _inline():
                 return body(*args, **kwargs)
-            key = _key(arguments)
-            prog = cache.get(key)
-            if prog is None:
-                callables = [v for v in arguments.values() if callable(v)]
-                if cache.first_call(key, callables):
-                    return eager(*args, **kwargs)
-                with torch.cuda.device(dev):
-                    prog = cache.put(key, _capture(body, arguments, loops, dev))
-            with torch.cuda.device(dev):
-                return prog.replay(arguments)
+            if not trace.recording():
+                return solve(arguments, dev, on_card, args, kwargs)
+            with trace.span("csr5.solve", solver=body.__name__) as attrs:
+                return solve(arguments, dev, on_card, args, kwargs, attrs)
 
         run.__wrapped__ = eager
         run.cache = cache

@@ -90,8 +90,11 @@ Phases, each of which must pass:
     solver; eager, first-call, capture-call and replay ms, and that
     replay's kernel time with its idle share; then twenty solves with a
     new lambda each, and a kept callable dropped after its capture, leave
-    the card's allocated memory where it was. Replays are left out of the
-    kernels line's launches, which count launches at a wrapper;
+    the card's allocated memory where it was. Each replay's capture record
+    must hold the eager run's launches and place each of its operators'
+    calls among the graph's device operations, and a replay add none to
+    the counters: the kernels line counts launches at a wrapper, eager or
+    captured;
 12. K4 at df64_banded500k in turns with cuSPARSE's float64 SpMV (k4,
     lib, lib, k4; the ratio printed) and with its plain version, its device
     time, the library yardstick (``torch.sparse_csr_tensor @ x``, cuSPARSE
@@ -926,7 +929,7 @@ def f64_sweep(dev, rng) -> list:
     from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5
     from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
-    from benchmark_spmv_using_csr5_tpu_torch.utils import graphs, synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
 
     f64 = torch.float64
     failed = []
@@ -986,7 +989,7 @@ def f64_path(dev, card, failed):
     from benchmark_spmv_using_csr5_tpu_torch.bench import cli
     from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64, csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
-    from benchmark_spmv_using_csr5_tpu_torch.utils import graphs, synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
 
     f64 = torch.float64
     df64 = synth.f64_banded(500_000, 27)
@@ -1057,14 +1060,13 @@ def f64_path(dev, card, failed):
         f"CG (K1, 300 iterations, {k1_cg} K1 launches) relative residual {res32:.3e} in {cg_s:.3f} s; "
         f"iterative refinement (5 x 50, K1 inner, K4 residual: {k1_ir} K1 and {k4_ir} K4 launches) "
         f"{res_ir:.3e} (scipy: {res_ir_scipy:.3e}) in {ir_s:.3f} s; limit 1e-10 and 10x below CG")
-    credited0 = dict(graphs.credited)
     solver_programs(dev, card, spd, a32, a64, failed)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    # the kernels line counts launches at a wrapper: the replays' credited
-    # launches stay out (phase 11 holds them against the profiler instead)
-    launches = {k: mod.launches - graphs.credited.get(k, 0) + credited0.get(k, 0)
-                for k, mod in (("csr5_spmv", csr5_kernel), ("csr5_spmv_f64", csr5_f64))}
+    # the kernels line counts launches at a wrapper, eager or captured; a
+    # replay adds none (phase 11 holds its capture record against the
+    # profiler instead)
+    launches = {"csr5_spmv": csr5_kernel.launches, "csr5_spmv_f64": csr5_f64.launches}
 
     # the CLI runs: checks, K4 against its plain version on the same x
     err = 0.0
@@ -1284,19 +1286,31 @@ def solver_programs(dev, card, spd, a32, a64, failed) -> dict:
             moved = any(float((o - r).abs().max()) > 0 for o, r in zip(out2, ref))
             refill_ok = (finite2 and moved and all(e <= rtol for e in refill.values())
                          and prog.cache_size() - size0 == 1)
+        # one replay runs what its capture record holds: the profiler's
+        # kernels of the profiled replay, and the eager run's launches
+        record = next(reversed(prog.cache.programs.values())).record
+        record_n = record.launches
+        # each call of the solver's operators lies in the graph, one
+        # product a launch here
+        products = (None if record.products is None else
+                    [b - a for spans in record.products.values() for a, b in spans])
         measured = None
         if win is not None:
             measured = {c: sum(k for nm, k in win[1].items() if SOLVER_KERNELS.get(c, "\0") in nm)
                         for c in eager_n}
         ok = (finite and finite_r and all(e <= rtol for e in (*errs.values(), *errs_first.values()))
               and first_captured == 0 and first_n == eager_n and captures == 1
-              and measured == eager_n and eager_n.get("csr5_spmv", 0) > 0
+              and measured == eager_n == record_n and replay_n == {}
+              and products is not None and len(products) == sum(eager_n.values())
+              and min(products) > 0
+              and eager_n.get("csr5_spmv", 0) > 0
               and (name != "iterative_refinement" or eager_n.get("csr5_spmv_f64", 0) > 0)
               and (refill is None or refill_ok))
         failed += [] if ok else [f"solver {name}"]
         rep = {"dtype": dtype, "rel_err": errs, "rel_err_first_call": errs_first, "rtol": rtol,
                "rel_err_refill": refill, "launches_eager": eager_n, "launches_first_call": first_n,
-               "launches_replay_profiled": measured, "launches_replay_credited": replay_n,
+               "launches_replay_profiled": measured, "launches_replay_record": record_n,
+               "product_ops": products,
                "captures": captures, "eager_ms": eager_ms, "first_ms": first_ms,
                "capture_ms": capture_ms, "replay_ms": replay_ms,
                "replay_median_ms": float(np.median(replay_ms)),
@@ -1325,7 +1339,9 @@ def solver_programs(dev, card, spd, a32, a64, failed) -> dict:
             f"(of the largest entry, limit {rtol:g}): first call "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs_first.items()) + ", replay "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f", {refill_txt}; launches "
-            f"eager {eager_n}, first call {first_n}, profiled replay's kernels {measured}; "
+            f"eager {eager_n}, first call {first_n}, capture record {record_n}, profiled replay's "
+            f"kernels {measured}; {len(products or ())} products in the record, device "
+            f"operations each {sorted(set(products or ()))}; "
             f"{captures} capture; eager {rep['eager_median_ms']:.3f} ms, first call {first_ms:.3f} ms "
             f"(eager), second call {capture_ms:.3f} ms (warm-up, capture, replay), replay "
             f"{rep['replay_median_ms']:.3f} ms (median of 5: "

@@ -26,8 +26,8 @@ Hessenbergs and on broken-down ones, at rtol 1e-5 (float32) and 1e-12
 (float64) of the largest coefficient; GMRES where Arnoldi breaks down
 exactly (A = I, b an eigenvector) must give the JAX x. The CUDA-graph
 path needs a card (``chip_smoke.py`` phase 11); here each decorated
-solver runs its eager body, and the launch-count bookkeeping, the
-replay's buffers and the cache (eager first call, capture on the second,
+solver runs its eager body, and the launch counters and the capture
+record, the replay's buffers and the cache (eager first call, capture on the second,
 entries dropped with their callable, the bound on programs, the tensors
 a capture keeps) are checked with the counters, a stand-in card and a
 stand-in graph.
@@ -49,7 +49,7 @@ import benchmark_spmv_using_csr5_tpu_torch as P
 from benchmark_spmv_using_csr5_tpu_torch.bench import harness
 from benchmark_spmv_using_csr5_tpu_torch.models import solvers
 from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64, csr5_kernel
-from benchmark_spmv_using_csr5_tpu_torch.utils import graphs, synth
+from benchmark_spmv_using_csr5_tpu_torch.utils import graphs, synth, trace
 
 
 def _spd(m=120, seed=0):
@@ -261,9 +261,16 @@ def _fake_counters():
     return mods, {k: (mod, "n") for k, mod in mods.items()}
 
 
-def test_launch_bookkeeping_of_a_capture_and_its_replays():
-    """What a capture counted is taken back out (no kernel ran), then
-    added once per replay: the counters end at what really ran."""
+def _stand_in(replay=lambda: None):
+    """A stand-in graph: what its ``replay`` runs."""
+    return types.SimpleNamespace(replay=replay)
+
+
+def test_launch_bookkeeping_of_a_capture_and_its_replays(monkeypatch):
+    """What a capture enqueued stays in the counters (a wrapper counts what
+    it enqueues, eagerly or into a graph) and goes into the program's
+    capture record, with where its operator's calls lie; a replay runs no
+    wrapper, so it adds nothing to the counters."""
     mods, counters = _fake_counters()
     before = graphs.read_launches(counters)
     assert before == {"k1": 3, "k4": 0, "k5": 7}
@@ -271,29 +278,37 @@ def test_launch_bookkeeping_of_a_capture_and_its_replays():
     mods["k4"].n += 6
     counted = graphs.launches_between(before, graphs.read_launches(counters))
     assert counted == {"k1": 300, "k4": 6}  # k5 did not move
-    graphs.add_launches(counted, -1, counters)
-    assert graphs.read_launches(counters) == before
+    prog = graphs._program("cg", {"iters": 50}, _stand_in(), {}, torch.zeros(2), {"kernel": 9},
+                           counted, {"spmv": [(0, 2), (5, 6)]})
     for _ in range(3):
-        graphs.add_launches(counted, counters=counters)
-    assert graphs.read_launches(counters) == {"k1": 903, "k4": 18, "k5": 7}
+        prog.replay({})
+    assert graphs.read_launches(counters) == {"k1": 303, "k4": 6, "k5": 7}
+    rec = prog.record
+    assert rec.launches == {"k1": 300, "k4": 6} and rec.products == {"spmv": ((0, 2), (5, 6))}
+    assert (rec.solver, rec.loops, rec.inputs, rec.outputs) == ("cg", {"iters": 50}, 0, 1)
 
 
 def test_kernel_counters_are_the_harness_counters(monkeypatch):
     """One table names every kernel's counter: the harness reads it, and
-    the bookkeeping writes the counters the wrappers add to."""
+    a capture's launches, the counters' moves from its start to its end,
+    are read from the counters the wrappers add to."""
     assert harness.kernel_launches() == graphs.read_launches()
-    monkeypatch.setattr(csr5_kernel, "launches", 10)
+    monkeypatch.setattr(csr5_kernel, "launches", 20)
     monkeypatch.setattr(csr5_f64, "launches", 4)
-    graphs.add_launches({"csr5_spmv": 5, "csr5_spmv_f64": 2}, 2)
-    assert (csr5_kernel.launches, csr5_f64.launches) == (20, 8)
     assert harness.kernel_launches()["csr5_spmv"] == 20
+    before = graphs.read_launches()
+    csr5_kernel.launches += 5
+    csr5_f64.launches += 2
+    assert graphs.launches_between(before, harness.kernel_launches()) == {
+        "csr5_spmv": 5, "csr5_spmv_f64": 2}
 
 
 def test_replay_refills_its_inputs_and_clones_its_outputs(monkeypatch):
     """A replay copies the call's tensors into the static buffers the graph
-    reads, credits one replay's launches and returns clones: a second
-    call does not overwrite the first call's result. A stand-in graph
-    doubles the static input into the static output."""
+    reads and returns clones: a second call does not overwrite the first
+    call's result. Its capture record counts the copies and the clones
+    each replay adds to the graph's nodes. A stand-in graph doubles the
+    static input into the static output."""
     monkeypatch.setattr(csr5_kernel, "launches", 0)
     inp = {"b": torch.zeros(4)}
     out = (torch.zeros(4), torch.zeros(()))
@@ -302,13 +317,15 @@ def test_replay_refills_its_inputs_and_clones_its_outputs(monkeypatch):
         out[0].copy_(2 * inp["b"])
         out[1].copy_(inp["b"].sum())
 
-    prog = graphs._Program(types.SimpleNamespace(replay=replay), inp, out, {"csr5_spmv": 3})
+    prog = graphs._program("cg", {"iters": 1}, _stand_in(replay), inp, out, {"kernel": 2},
+                           {"csr5_spmv": 3})
     b1, b2 = torch.arange(4.0), torch.ones(4)
     y1, s1 = prog.replay({"spmv": None, "b": b1})
     y2, s2 = prog.replay({"spmv": None, "b": b2})
     assert torch.equal(y1, 2 * b1) and float(s1) == 6.0
     assert torch.equal(y2, 2 * b2) and float(s2) == 4.0
-    assert y1.data_ptr() != out[0].data_ptr() and csr5_kernel.launches == 6
+    assert y1.data_ptr() != out[0].data_ptr() and csr5_kernel.launches == 0
+    assert (prog.record.inputs, prog.record.outputs, prog.record.nodes) == (1, 2, {"kernel": 2})
 
 
 def test_cache_key_and_device():
@@ -367,8 +384,8 @@ def _toy_program(monkeypatch):
         inp = {"b": arguments["b"].clone()}
         out = torch.zeros_like(inp["b"])
         iters = arguments["iters"]
-        graph = types.SimpleNamespace(replay=lambda: out.copy_(2 * inp["b"] * iters))
-        return graphs._Program(graph, inp, out, {})
+        graph = _stand_in(lambda: out.copy_(2 * inp["b"] * iters))
+        return graphs._program("scale", {"iters": iters}, graph, inp, out, None, {})
 
     monkeypatch.setattr(graphs, "_capture", capture)
 
@@ -463,16 +480,16 @@ def test_capture_keeps_what_it_read_not_what_it_made():
 
 
 def test_replays_are_tallied_apart(monkeypatch):
-    """What a replay adds to the counters is also tallied in
-    ``graphs.credited``, so the launches counted at a wrapper stay
-    known."""
-    monkeypatch.setattr(csr5_kernel, "launches", 0)
-    monkeypatch.setattr(graphs, "credited", {})
-    prog = graphs._Program(types.SimpleNamespace(replay=lambda: None), {}, torch.zeros(1),
-                           {"csr5_spmv": 7})
+    """A replay's launches are tallied apart from the wrappers' counters:
+    the counters stay where the capture left them, and the capture record
+    of the program, times its replays, is what ran."""
+    monkeypatch.setattr(csr5_kernel, "launches", 7)
+    prog = graphs._program("pagerank", {"iters": 7}, _stand_in(), {}, torch.zeros(1),
+                           {"kernel": 40, "memset": 1}, {"csr5_spmv": 7})
     prog.replay({})
     prog.replay({})
-    assert csr5_kernel.launches == 14 and graphs.credited == {"csr5_spmv": 14}
+    assert csr5_kernel.launches == 7
+    assert trace.captures()[prog.record.program].launches == {"csr5_spmv": 7}
 
 
 def test_nested_programs_run_inline():
