@@ -19,6 +19,14 @@
 // gathered through the read-only cache; on banded matrices neighbouring
 // lanes hit the same lines.
 //
+// Where the loads sit in the caches (ResidentLoads, csr5_tile.cuh): on a
+// power-law graph the gathers of x hit no pattern, and when the planes
+// stream through L1 and L2 at normal priority beside them, every gather
+// pays a trip to device memory even where x would fit L2. So the planes,
+// read once, skip L1 and leave L2 first, and x's gathers take an evict-last
+// policy on the share of x's lines that the persisting set-aside holds
+// (`share`, from the wrapper: ops/csr5_kernel.py::resident_share).
+//
 // Why atomics: the TPU kernel adds a row that straddles tiles correctly
 // only because its grid runs tiles in order on one core and y stays in VMEM
 // across grid steps. CUDA blocks run in parallel in no order, so the first
@@ -48,7 +56,7 @@ csr5_spmv_tile_kernel(const int32_t* __restrict__ col,
                       const int32_t* __restrict__ tile_ptr,
                       const float* __restrict__ x,
                       float* __restrict__ y,
-                      int sigma, int capw, int win_rel) {
+                      int sigma, int capw, int win_rel, float share) {
     extern __shared__ float smem[];
     float* prefix = smem;                  // (sigma, 128) within-lane prefixes
     float* carry = smem + sigma * kLanes;  // (128,) exclusive lane carries
@@ -57,9 +65,11 @@ csr5_spmv_tile_kernel(const int32_t* __restrict__ col,
     const int t = blockIdx.x;
     const int l = threadIdx.x;
     const size_t tile0 = (size_t)t * sigma * kLanes;
-    const float run = tile_products(col + tile0, val + tile0, x, sigma, l, prefix);
+    const ResidentLoads ld(share);
+    const float run = tile_products(col + tile0, val + tile0, x, sigma, l, prefix, ld);
     lane_carry(run, l, warp_total, carry);
-    window_pass(win_map + (size_t)t * capw, tile_ptr[t], capw, win_rel, prefix, carry, y, l);
+    window_pass(win_map + (size_t)t * capw, ld.plane(tile_ptr + t), capw, win_rel, prefix, carry,
+                y, l, ld);
 }
 
 template <typename V>
@@ -71,7 +81,7 @@ csr5_spmv_packed_kernel(const int32_t* __restrict__ colp,
                         const int32_t* __restrict__ pages,
                         const float* __restrict__ x,
                         float* __restrict__ y,
-                        int sigma, int capw, int win_rel, int pmax) {
+                        int sigma, int capw, int win_rel, int pmax, float share) {
     extern __shared__ float smem[];
     float* prefix = smem;                  // (sigma, 128) within-lane prefixes
     float* carry = smem + sigma * kLanes;  // (128,) exclusive lane carries
@@ -80,16 +90,18 @@ csr5_spmv_packed_kernel(const int32_t* __restrict__ colp,
     const int t = blockIdx.x;
     const int l = threadIdx.x;
     const size_t tile0 = (size_t)t * sigma * kLanes;
+    const ResidentLoads ld(share);
     const float run = tile_products_packed(colp + tile0 / 2, val + tile0, pages + (size_t)t * pmax,
-                                           x, sigma, l, prefix);
+                                           x, sigma, l, prefix, ld);
     lane_carry(run, l, warp_total, carry);
-    window_pass(win_map + (size_t)t * capw, tile_ptr[t], capw, win_rel, prefix, carry, y, l);
+    window_pass(win_map + (size_t)t * capw, ld.plane(tile_ptr + t), capw, win_rel, prefix, carry,
+                y, l, ld);
 }
 
 template <typename V>
 int launch(const void* col, const void* val, const void* win_map,
            const void* tile_ptr, const void* x, void* y, int p, int sigma,
-           int capw, int win_rel, void* stream) {
+           int capw, int win_rel, float share, void* stream) {
     if (p <= 0) return 0;
     const size_t smem = (size_t)(sigma + 1) * kLanes * sizeof(float);
     const cudaError_t err = grant_smem<&csr5_spmv_tile_kernel<V>>(smem);
@@ -97,14 +109,15 @@ int launch(const void* col, const void* val, const void* win_map,
     csr5_spmv_tile_kernel<V><<<p, kLanes, smem, (cudaStream_t)stream>>>(
         (const int32_t*)col, (const V*)val, (const int32_t*)win_map,
         (const int32_t*)tile_ptr, (const float*)x, (float*)y, sigma, capw,
-        win_rel);
+        win_rel, share);
     return (int)cudaGetLastError();
 }
 
 template <typename V>
 int launch_packed(const void* colp, const void* val, const void* win_map,
                   const void* tile_ptr, const void* pages, const void* x, void* y,
-                  int p, int sigma, int capw, int win_rel, int pmax, void* stream) {
+                  int p, int sigma, int capw, int win_rel, int pmax, float share,
+                  void* stream) {
     if (p <= 0) return 0;
     const size_t smem = (size_t)(sigma + 1) * kLanes * sizeof(float);
     const cudaError_t err = grant_smem<&csr5_spmv_packed_kernel<V>>(smem);
@@ -112,7 +125,7 @@ int launch_packed(const void* colp, const void* val, const void* win_map,
     csr5_spmv_packed_kernel<V><<<p, kLanes, smem, (cudaStream_t)stream>>>(
         (const int32_t*)colp, (const V*)val, (const int32_t*)win_map,
         (const int32_t*)tile_ptr, (const int32_t*)pages, (const float*)x, (float*)y,
-        sigma, capw, win_rel, pmax);
+        sigma, capw, win_rel, pmax, share);
     return (int)cudaGetLastError();
 }
 
@@ -121,36 +134,75 @@ int launch_packed(const void* colp, const void* val, const void* win_map,
 extern "C" {
 
 // y (m_pad float32, zeroed by the caller) += A @ x for a CSR5 matrix with
-// float32 values. Returns the CUDA error code of the launch (0 on success).
+// float32 values; share in [0, 1] is the part of x's lines gathered with an
+// L2 evict-last policy. Returns the CUDA error code of the launch (0 on
+// success).
 int csr5_spmv_f32(const void* col, const void* val, const void* win_map,
                   const void* tile_ptr, const void* x, void* y, int p,
-                  int sigma, int capw, int win_rel, void* stream) {
+                  int sigma, int capw, int win_rel, float share, void* stream) {
     return launch<float>(col, val, win_map, tile_ptr, x, y, p, sigma, capw,
-                         win_rel, stream);
+                         win_rel, share, stream);
 }
 
 // The same with bfloat16 values (products and sums stay float32).
 int csr5_spmv_bf16(const void* col, const void* val, const void* win_map,
                    const void* tile_ptr, const void* x, void* y, int p,
-                   int sigma, int capw, int win_rel, void* stream) {
+                   int sigma, int capw, int win_rel, float share, void* stream) {
     return launch<__nv_bfloat16>(col, val, win_map, tile_ptr, x, y, p, sigma,
-                                 capw, win_rel, stream);
+                                 capw, win_rel, share, stream);
 }
 
 // K1p: the same product streaming col_packed (p, sigma/2, 128) int32 and the
 // page lists pages (p, pmax) int32, sigma % 16 == 0, pmax <= 512.
 int csr5_spmv_packed_f32(const void* colp, const void* val, const void* win_map,
                          const void* tile_ptr, const void* pages, const void* x, void* y,
-                         int p, int sigma, int capw, int win_rel, int pmax, void* stream) {
+                         int p, int sigma, int capw, int win_rel, int pmax, float share,
+                         void* stream) {
     return launch_packed<float>(colp, val, win_map, tile_ptr, pages, x, y, p, sigma, capw,
-                                win_rel, pmax, stream);
+                                win_rel, pmax, share, stream);
 }
 
 int csr5_spmv_packed_bf16(const void* colp, const void* val, const void* win_map,
                           const void* tile_ptr, const void* pages, const void* x, void* y,
-                          int p, int sigma, int capw, int win_rel, int pmax, void* stream) {
+                          int p, int sigma, int capw, int win_rel, int pmax, float share,
+                          void* stream) {
     return launch_packed<__nv_bfloat16>(colp, val, win_map, tile_ptr, pages, x, y, p, sigma,
-                                        capw, win_rel, pmax, stream);
+                                        capw, win_rel, pmax, share, stream);
+}
+
+// out[0] = device dev's L2 bytes (cudaDevAttrL2CacheSize), out[1] the most
+// of it a persisting set-aside may take (cudaDevAttrMaxPersistingL2CacheSize).
+// Returns a CUDA error code.
+int csr5_l2_attributes(int dev, long long* out) {
+    int l2 = 0, persisting = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&persisting, cudaDevAttrMaxPersistingL2CacheSize, dev);
+    out[0] = l2;
+    out[1] = persisting;
+    return (int)err;
+}
+
+// Raises device dev's persisting L2 set-aside (cudaLimitPersistingL2CacheSize,
+// a limit of this process's context) to at least `bytes`; never lowers it.
+// *granted is the limit afterwards (the card rounds it to its own unit). The
+// calling thread's current device is restored. Returns a CUDA error code.
+int csr5_grant_persisting_l2(int dev, long long bytes, long long* granted) {
+    int prev = 0;
+    cudaError_t err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != dev) err = cudaSetDevice(dev);
+    size_t now = 0;
+    if (err == cudaSuccess) err = cudaDeviceGetLimit(&now, cudaLimitPersistingL2CacheSize);
+    if (err == cudaSuccess && (long long)now < bytes) {
+        err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, (size_t)bytes);
+        if (err == cudaSuccess) err = cudaDeviceGetLimit(&now, cudaLimitPersistingL2CacheSize);
+    }
+    if (prev != dev) {
+        const cudaError_t back = cudaSetDevice(prev);
+        if (err == cudaSuccess) err = back;
+    }
+    *granted = (long long)now;
+    return (int)err;
 }
 
 const char* csr5_cuda_error_string(int code) {

@@ -15,6 +15,15 @@ of 4. As ``_csr5_spmv_pallas_jit`` and ``_csr5_spmm_pallas_jit`` do
 one (sigma % 16 == 0 and pmax <= 512); the raw plane is then not read.
 Each of the four kernels has its own launch counter.
 
+K1 and K1p place their loads in the cache hierarchy: the planes skip L1
+and leave L2 first, and x's gathers hold a share of x's lines in L2 with
+an evict-last policy (:func:`resident_share`). The card honours evict-last
+only inside the persisting set-aside (``cudaLimitPersistingL2CacheSize``),
+so the wrapper raises that limit of the process's context to the held
+share of x, once per device and size, outside any capture. Persisting lines
+then take up to the set-aside from every kernel of the process while they
+stay in L2.
+
 K2 (``csrc/csr5_spmm.cu``) is the same kernel at R > 1
 (``_csr5_spmm_pallas_jit``, ``csr5_spmm_pallas``): each tile's column and
 value planes are read once per chunk of up to 16 right-hand sides, and the
@@ -36,6 +45,7 @@ versions (:func:`..ops.csr5_spmv.csr5_spmv_torch`,
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -55,6 +65,10 @@ packed_launches = 0
 spmm_launches = 0
 #: K2p launches so far in this process
 spmm_packed_launches = 0
+#: K1 and K1p launches that gathered a share of x above 0 with evict-last
+resident_launches = 0
+#: the share of x's lines the last K1 or K1p launch gathered with evict-last
+last_x_resident_share = 0.0
 #: the largest page list the packed codes can address (9 bits)
 MAX_PACKED_PAGES = 512
 
@@ -72,6 +86,10 @@ _INT32_MAX = 2**31 - 1
 
 _bound = None
 _bound_spmm = None
+#: device index -> (L2 bytes, the most a persisting set-aside may take)
+_l2_attributes: dict = {}
+#: device index -> the persisting set-aside granted (bytes)
+_setaside: dict = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -80,15 +98,21 @@ def _lib() -> ctypes.CDLL:
     if _bound is None:
         lib = cuda_build.load("csr5_spmv")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        f32, i64p = ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
         for fn in (lib.csr5_spmv_f32, lib.csr5_spmv_bf16):
-            # col, val, win_map, tile_ptr, x, y, p, sigma, capw, win_rel, stream
-            fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+            # col, val, win_map, tile_ptr, x, y, p, sigma, capw, win_rel,
+            # share, stream
+            fn.argtypes = [ptr] * 6 + [i32] * 4 + [f32, ptr]
             fn.restype = i32
         for fn in (lib.csr5_spmv_packed_f32, lib.csr5_spmv_packed_bf16):
             # colp, val, win_map, tile_ptr, pages, x, y, p, sigma, capw,
-            # win_rel, pmax, stream
-            fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+            # win_rel, pmax, share, stream
+            fn.argtypes = [ptr] * 7 + [i32] * 5 + [f32, ptr]
             fn.restype = i32
+        lib.csr5_l2_attributes.argtypes = [i32, i64p]
+        lib.csr5_l2_attributes.restype = i32
+        lib.csr5_grant_persisting_l2.argtypes = [i32, ctypes.c_longlong, i64p]
+        lib.csr5_grant_persisting_l2.restype = i32
         lib.csr5_cuda_error_string.argtypes = [i32]
         lib.csr5_cuda_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -154,10 +178,63 @@ def _expect_planes(a5: CSR5Matrix, device, who: str) -> None:
     _expect(a5.tile_ptr, "tile_ptr", (torch.int32,), (p + 1,), device, who)
 
 
+def resident_share(x_bytes: int, l2_bytes: int, persisting_max: int) -> float:
+    """The share of x's lines K1 gathers with an L2 evict-last policy:
+    min(1, room / x bytes), where room is the persisting set-aside the
+    device allows (``cudaDevAttrMaxPersistingL2CacheSize``, at most its L2).
+    Evict-last lines beyond the set-aside evict each other, so a larger
+    share only churns it; 0 where the device allows no set-aside."""
+    room = min(l2_bytes, persisting_max)
+    if room <= 0 or x_bytes <= 0:
+        return 0.0
+    return min(1.0, room / x_bytes)
+
+
+def _l2(lib, dev: torch.device) -> tuple:
+    """(L2 bytes, the most a persisting set-aside may take) of ``dev``."""
+    if dev.index not in _l2_attributes:
+        out = (ctypes.c_longlong * 2)()
+        rc = lib.csr5_l2_attributes(dev.index, out)
+        if rc != 0:
+            msg = lib.csr5_cuda_error_string(rc).decode(errors="replace")
+            raise RuntimeError(f"csr5_spmv_cuda: reading the L2 attributes failed: {msg} ({rc})")
+        _l2_attributes[dev.index] = (out[0], out[1])
+    return _l2_attributes[dev.index]
+
+
+def _residency(lib, dev: torch.device, x_bytes: int) -> float:
+    """The share of x held in L2 for this launch; raises the device's
+    persisting set-aside to hold it the first time a launch needs more,
+    but never inside a capture (a CUDA graph replays the launch under
+    whatever set-aside the process has)."""
+    l2_bytes, persisting_max = _l2(lib, dev)
+    share = resident_share(x_bytes, l2_bytes, persisting_max)
+    want = min(persisting_max, math.ceil(share * x_bytes))
+    if want > _setaside.get(dev.index, 0) and not torch.cuda.is_current_stream_capturing():
+        granted = ctypes.c_longlong(0)
+        rc = lib.csr5_grant_persisting_l2(dev.index, want, ctypes.byref(granted))
+        if rc != 0:
+            msg = lib.csr5_cuda_error_string(rc).decode(errors="replace")
+            raise RuntimeError(f"csr5_spmv_cuda: the persisting L2 set-aside failed: {msg} ({rc})")
+        _setaside[dev.index] = max(want, granted.value)
+    return share
+
+
+def _launched(packed: bool, share: float) -> None:
+    """Counts one K1 or K1p launch and the share of x it held in L2."""
+    global launches, packed_launches, resident_launches, last_x_resident_share
+    if packed:
+        packed_launches += 1
+    else:
+        launches += 1
+    if share > 0.0:
+        resident_launches += 1
+    last_x_resident_share = share
+
+
 def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     """y = alpha * A @ x through K1p when the matrix has ``col_packed``,
     else K1 (CUDA tensors only)."""
-    global launches, packed_launches
     if not x.is_cuda:
         raise ValueError(
             "csr5_spmv_cuda takes CUDA tensors; CPU tensors go through "
@@ -186,6 +263,7 @@ def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     bf16 = a5.val_tiles.dtype == torch.bfloat16
     packed = a5.col_packed is not None
     xa = x if alpha == 1.0 else x * alpha
+    share = _residency(lib, dev, a5.n * 4)
     y = torch.zeros(a5.m_pad, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -194,22 +272,19 @@ def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
             rc = fn(
                 a5.col_packed.data_ptr(), a5.val_tiles.data_ptr(), a5.win_map.data_ptr(),
                 a5.tile_ptr.data_ptr(), a5.pages.data_ptr(), xa.data_ptr(), y.data_ptr(),
-                p, sig, capw, int(a5.win_rel), a5.pmax, stream,
+                p, sig, capw, int(a5.win_rel), a5.pmax, share, stream,
             )
         else:
             fn = lib.csr5_spmv_bf16 if bf16 else lib.csr5_spmv_f32
             rc = fn(
                 a5.col_idx_tiles.data_ptr(), a5.val_tiles.data_ptr(), a5.win_map.data_ptr(),
                 a5.tile_ptr.data_ptr(), xa.data_ptr(), y.data_ptr(),
-                p, sig, capw, int(a5.win_rel), stream,
+                p, sig, capw, int(a5.win_rel), share, stream,
             )
     if rc != 0:
         msg = lib.csr5_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"csr5_spmv_cuda: kernel launch failed: {msg} ({rc})")
-    if packed:
-        packed_launches += 1
-    else:
-        launches += 1
+    _launched(packed, share)
     return y[: a5.m]
 
 

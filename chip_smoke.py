@@ -40,7 +40,9 @@ Phases, each of which must pass:
    K5, K6 and K1 over that run;
 6. K5 and K1 on the same banded500k matrix and x, in turns with their
    plain versions (the card's own DIA-vs-CSR5 crossover), K6 at R = 8,
-   and the device time of each kernel by ``torch.profiler``;
+   and the device time of each kernel by ``torch.profiler``; K1's y once
+   more bit-equal to the plain version, with the share of x it held in L2,
+   its ``resident_launches`` and its device time over ``K1_US_BEFORE``;
 7. kernels K2 (CSR5 SpMM) and K7 (band-block SpMM) against their plain
    versions on the card and against scipy, on the odd shapes of phases 2
    and 4: R in {1, 2, 5, 8, 16, 17} (K7 also 32, one pass over the plane,
@@ -121,7 +123,8 @@ Phases, each of which must pass:
     banded20M, K1p against K1 on the raw plane and K2p against K2 at
     banded500k sigma 16 (each with its staging mode), with device times by
     torch.profiler, each one's bound from this run's inputs and the
-    cuSPARSE yardstick;
+    cuSPARSE yardstick; K1p's residency line as K1's in phase 6, against
+    ``K1P_US_BEFORE``;
 16. the benchmark suite on the card: ``bench/suite.py`` in a subprocess
     (so banded20M's 24 GB of host memory is freed after it), its lines
     relayed; every one of its 18 cases (``dist1_banded500k`` with its
@@ -193,6 +196,11 @@ K4_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/csr5_spmv_f64.cu"
 K1P_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_kernel.py:311"
 K3_REPLACES = "benchmark_spmv_using_csr5_tpu/ops/csr5_kernel.py:247"
 K3_SOURCE = "benchmark_spmv_using_csr5_tpu_torch/csrc/csr5_sliced.cu"
+#: K1's and K1p's device times at banded500k (K1p at sigma 16) before
+#: their loads were placed in the cache hierarchy (PERF.md's kernel table,
+#: NVIDIA H100 80GB HBM3 at 700 W); phases 6 and 15 print the ratio to them
+K1_US_BEFORE = 35.81
+K1P_US_BEFORE = 32.64
 #: every CUDA source of the port, built at once in phase 1
 SOURCES = ("csr5_spmv", "csr5_spmv_f64", "csr5_spmm", "dia_spmv", "bandmm", "csr5_sliced")
 #: the suite's cases whose values are not integers (checked by their own
@@ -496,6 +504,31 @@ def device_us(fn, *args, match: str, n: int = 50):
     return total / count if count and total else None
 
 
+def residency_line(name, a5, x, us, us_before, card) -> str:
+    """One more launch of K1 or K1p on ``a5`` and ``x``: whether y is bit
+    for bit the plain version's (integer data), the share of x it held in
+    L2 and the launches that held one, and its device time against the
+    time before the loads were placed."""
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import (
+        csr5_spmv_packed_torch, csr5_spmv_torch,
+    )
+
+    plain = csr5_spmv_packed_torch if a5.col_packed is not None else csr5_spmv_torch
+    exact = torch.equal(csr5_kernel.csr5_spmv_cuda(a5, x), plain(a5, x))
+    if not exact:
+        raise RuntimeError(f"{name} at banded500k: y differs from the plain version")
+    ratio = "not measured" if us is None else f"{us / us_before:.4f}"
+    return (f"[{name} residency] y equal to the plain version; x {a5.n * 4 / 1e6:.1f} MB, share "
+            f"held in L2 {csr5_kernel.last_x_resident_share:.4f}, resident_launches "
+            f"{csr5_kernel.resident_launches}, L2 attributes (bytes, persisting max) "
+            f"{csr5_kernel._l2_attributes.get(x.device.index)}, set-aside granted "
+            f"{csr5_kernel._setaside.get(x.device.index)}; device {us} us against "
+            f"{us_before} us before: {ratio} [{card}]")
+
+
 def crossover(dev, card, kind, a5, auto_res, spmm_res, x):
     """K5 and K1 (with their plain versions) on the same banded500k
     matrix and x, in turns; K6 at R = 8 likewise; device times."""
@@ -539,6 +572,7 @@ def crossover(dev, card, kind, a5, auto_res, spmm_res, x):
         "k6": device_us(dia_kernel.dia_spmm_cuda, spmm_res.matrix, xm, match="dia_spmm_kernel"),
     }
     plane_mb = d32.data.numel() * d32.data.element_size() / 1e6
+    say(residency_line("K1", a5, x, dev_us["k1"], K1_US_BEFORE, card))
     say(f"[banded500k crossover, {card}] turns (ms per call, event loop of 100): "
         + ", ".join(f"{k} {v}" for k, v in times.items()))
     say(
@@ -1874,6 +1908,7 @@ def large_turns(dev, card, kind, res, a20, band500k):
         "k2p": device_us(csr5_kernel.csr5_spmm_cuda, a5p, x8, match="csr5_spmm_packed_kernel"),
         "k2_raw": device_us(csr5_kernel.csr5_spmm_cuda, a5r, x8, match="csr5_spmm_tile_kernel"),
     }
+    say(residency_line("K1p", a5p, x, dev_us["k1p"], K1P_US_BEFORE, card))
     A = library_csr(band500k, np.float32, dev)
     lib1 = perf.benchmark(mm, A, x, device=dev, num_run=100)
     lib8 = perf.benchmark(mm, A, x8, device=dev, num_run=100)
