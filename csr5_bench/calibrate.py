@@ -7,8 +7,9 @@ float64 configuration, a bfloat16 plane for a float32 one).
         --seeds <n> [<n> ...] [--control]
 
 Prints one JSON line per seed: the numbers compared, the count of outputs
-compared, the shape and the set-up phases. The benchmark's own runs do
-not run it.
+compared, the shape and the set-up phases. A cell of more chips runs every
+seed in one set of ranks (``ranks.py``). The benchmark's own runs do not
+run it.
 """
 
 import argparse
@@ -18,7 +19,7 @@ import sys
 
 import torch
 
-from . import harness
+from . import harness, ranks
 
 
 def main(argv=None) -> int:
@@ -31,13 +32,22 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("calibration needs a CUDA device", file=sys.stderr)
         return 2
-    for seed in args.seeds:
-        r = harness.run_cell(args.workload, seed, args.seconds, False, control=args.control)
+
+    def report(seed, r):
         print(json.dumps({"workload": args.workload, "seed": seed, "control": args.control,
                           "correct": r["correct"], "attempted": r["attempted"],
                           "checks": r["checks"], "metrics": r["metrics"],
                           "memory_peak_bytes": r["device"]["memory_peak_bytes"],
                           "shape": r["shape"], "phases": r["phases"]}), flush=True)
+
+    if ranks.chips_of(args.workload) > 1:  # every seed in one set of ranks
+        seeds = iter(args.seeds)
+        ranks.run_cells(args.workload, [(seed, args.control) for seed in args.seeds],
+                        args.seconds, False, on_result=lambda r: report(next(seeds), r))
+        return 0
+    for seed in args.seeds:
+        r = harness.run_cell(args.workload, seed, args.seconds, False, control=args.control)
+        report(seed, r)
         del r
         gc.collect()
         torch.cuda.empty_cache()

@@ -168,7 +168,11 @@ def _breakdown(t: Trace, gaps: List[Tuple[float, float]]) -> dict:
 
 def _profiled(loop: Callable[[], int], cuda: bool, sync: Callable[[], None]):
     """Run ``loop`` (which returns its count of calls) under the profiler:
-    (calls, window seconds, device ops, host ops)."""
+    (calls, window seconds, device ops, host ops). The device ops leave out
+    the card's copies of the host's annotations: c10d marks each exchange
+    with a range (``nccl:coalesced``) that the trace repeats on the card
+    over the exchange's kernel, and a sum of device time would count that
+    kernel twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -189,7 +193,11 @@ def _profiled(loop: Callable[[], int], cuda: bool, sync: Callable[[], None]):
         s, f = e.time_range.start, e.time_range.end
         if f <= s:
             continue
-        (dev_ops if e.device_type == DeviceType.CUDA else host_ops).append((e.name, s, f))
+        if e.device_type != DeviceType.CUDA:
+            host_ops.append((e.name, s, f))
+        elif not (getattr(e, "is_user_annotation", False)
+                  or getattr(e, "activity_type", None) == "gpu_user_annotation"):
+            dev_ops.append((e.name, s, f))
     return calls, window_s, dev_ops, host_ops
 
 

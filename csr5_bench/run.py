@@ -1,4 +1,5 @@
-"""The benchmark's one command: one run of one cell on one card.
+"""The benchmark's one command: one run of one cell, on one card or, for a
+cell of more chips, as one rank on each (``ranks.py``).
 
     python3 -m csr5_bench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -65,8 +66,18 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available",
               file=sys.stderr)
         return 2
-    result = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
-                              t_start=_T_START)
+    if chips == 1:
+        result = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
+                                  t_start=_T_START)
+    else:  # one process per chip (ranks.py)
+        from . import ranks
+
+        try:
+            result = ranks.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
+                                    t_start=_T_START)
+        except ranks.RankFailure as exc:
+            print(f"{args.workload}: {exc}", file=sys.stderr)
+            return 1
     bad = loaded_forbidden()
     if bad:
         print(f"the run loaded forbidden modules: {', '.join(bad)}", file=sys.stderr)
