@@ -23,8 +23,10 @@ width. The JAX package is one controller that stacks D shards under
 - :func:`distributed_spmv` takes the global x and returns the global y;
   :func:`distributed_spmv_local` takes this rank's x shard and returns its
   y block (the timed loop's and a distributed solver's form). The local
-  product is the port's ``csr5_spmv``: K1 or K1p on the card, the plain
-  version on the CPU.
+  product is the port's ``csr5_spmv``: K1, K1p or K4 on the card, the
+  plain version on the CPU. On the card under NCCL a halo shard's product
+  is one device program, as the JAX package's jitted ``shard_map`` is one
+  executable (below).
 - :func:`distributed_spmm`: the ring of JAX ``distributed.py:443-512``: D
   steps, each the local K2/K2p product on the held column shard of X, then
   a pass to rank ``(r + 1) % D``.
@@ -34,12 +36,46 @@ deprecated in newer torch; the list form runs on both), and
 ``dist.batch_isend_irecv`` for halos and the ring, edge ranks filling
 their missing halo with zeros themselves (JAX's ``ppermute`` gives zeros
 for free).
+
+**The product as one program.** Eagerly, a halo product costs about ten
+host calls (two fills, the exchange and its waits, a ``cat``, the
+kernel's wrapper), as long on an H100's host as the kernel on its card.
+So on CUDA tensors under NCCL, :func:`distributed_spmv_local` runs a halo
+shard's product as one CUDA graph per call, keyed by (shard, x shape,
+dtype, device, alpha), as ``utils/graphs.py`` runs a solver: the first
+call of a key is the eager body (it also makes NCCL's communicator); the
+second keeps a buffer ``[left | x | right]``, zeroed once (an edge rank's
+outer halo stays zero), and captures the exchange into its halo slots
+from x's boundary planes, then the local product on the whole buffer.
+Every call from then on copies x into the buffer's middle and replays.
+
+**One exchange a call.** Every call of a key, eager, capture or replay,
+makes exactly one exchange with its neighbours, whatever the caller
+holds, so the ranks' point-to-point calls pair one for one even where
+one rank captures while another replays: a capture's warm-up leaves the
+exchange out (``graphs.capture``'s ``exchange``), and the capture then
+runs once.
+
+**Who owns y.** Each program writes its own y, and the caller owns every
+y returned: a key keeps up to :data:`RING` programs on its one buffer, a
+call replays the next program whose y nothing outside it still holds
+(its storage's use count is back to what it was at capture) and returns
+that y, captures another program while every y is held and there are
+fewer than :data:`RING`, and past that runs the eager body. So a
+replay's device work is the eager body's less its halo fills: x's copy,
+the exchange, y's fill and the kernel. Where torch cannot count a
+storage's holders (``torch._C._storage_Use_Count``), a key keeps one
+program and each call returns a clone of its y. Gloo, CPU tensors and
+all-gathered shards keep the eager body; so does a call made inside a
+caller's own capture.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -51,6 +87,7 @@ from ..models.formats import CSR5Matrix, col_tiles_of
 from ..ops import convert
 from ..ops.convert_device import PlanStatics, build_csr5_device, plan_statics
 from ..ops.csr5_spmv import csr5_spmm, csr5_spmv
+from ..utils import graphs, trace
 from .launch import backend_for
 
 
@@ -100,14 +137,16 @@ def make_mesh(n_devices: Optional[int] = None, device=DEFAULT_DEVICE) -> Mesh:
                 backend=backend)
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class DistributedCSR5:
     """This rank's shard of a row-block-partitioned CSR5 matrix (the JAX
     ``DistributedCSR5``, ``distributed.py:35-70``, whose ``local`` stacks
     every shard). ``halo``: None, x is all-gathered; ``(H_l, H_r)``, the
     shards were built over the column windows ``[d * n_per - H_l, (d + 1)
     * n_per + H_r)`` and x moves as two neighbour halos. ``convert_route``
-    is ``"host"`` or ``"device"``: the route that built the shard."""
+    is ``"host"`` or ``"device"``: the route that built the shard. Two
+    shards are equal only when they are one object (its captured products
+    are kept by it)."""
 
     shape: Tuple[int, int]
     config: CSR5Config
@@ -248,10 +287,12 @@ def _pad_shard(s: CSR5Matrix, p: int, capw: int, pmax: int, m_pad: int, n_pad: i
     )
 
 
-def _host_shard(shards: list, rank: int, cfg: CSR5Config, win_mode: str, device) -> CSR5Matrix:
+def _host_shard(shards: list, rank: int, cfg: CSR5Config, win_mode: str, device,
+                value_dtype=None) -> CSR5Matrix:
     """Rank ``rank``'s shard by the host pipeline, padded to the statics
     of every shard's host plan (the own shard is planned last: the plans
-    share the host arena)."""
+    share the host arena), its value plane of ``value_dtype`` as
+    ``build_csr5`` takes it."""
     D = len(shards)
     ph = convert._Phases()
     stats = {}
@@ -260,23 +301,32 @@ def _host_shard(shards: list, rank: int, cfg: CSR5Config, win_mode: str, device)
         hp = convert._host_plan(rp, ci, v, mm, nn, cfg, win_mode, ph, False, device)
         packed = hp.col16 is not None and hp.stream_packed
         stats[d] = (hp.p_pad, hp.capw, hp.pmax, hp.pages_contig, packed, int(hp.eo.shape[0]))
-    own = convert._transpose_upload(hp, shards[rank][2], None, device, ph, False)
+    own = convert._transpose_upload(hp, shards[rank][2], value_dtype, device, ph, False)
     p, capw, pmax = (max(s[i] for s in stats.values()) for i in range(3))
     contig = all(s[3] and s[2] == pmax for s in stats.values())
     # col_packed survives only in every shard; else every shard carries raw
-    # columns (a shard's raw plane is dropped exactly where it is packed)
+    # columns (a shard's raw plane is dropped exactly where it is packed,
+    # but on a float64 plane, which K4 reads by its raw columns)
     packed = all(s[4] for s in stats.values())
+    raw = not packed or value_dtype == torch.float64
     eo_len = max(s[5] for s in stats.values()) or 1
     m_pad = -(-(own.m + capw + 128) // 1024) * 1024
-    return _pad_shard(own, p, capw, pmax, m_pad, own.n_pad, contig, packed, not packed, eo_len)
+    return _pad_shard(own, p, capw, pmax, m_pad, own.n_pad, contig, packed, raw, eo_len)
 
 
-def _device_shard(shards: list, rank: int, cfg: CSR5Config, device) -> Optional[CSR5Matrix]:
+def _device_shard(shards: list, rank: int, cfg: CSR5Config, device,
+                  value_dtype=None) -> Optional[CSR5Matrix]:
     """Rank ``rank``'s shard converted on ``device`` from its raw CSR
     (JAX ``_convert_shards_on_device`` :210-278), under statics unified
-    over every shard's host pre-pass; None when the shards' gather modes
-    or page-list widths differ (the caller takes the host route)."""
+    over every shard's host pre-pass, its values cast to ``value_dtype``
+    (None: kept); None when the shards' gather modes or page-list widths
+    differ (the caller takes the host route). The host pre-pass over every
+    shard is the ``plan`` phase of ``convert.last_convert_phases``."""
+    ph = convert._Phases()
     stats = [plan_statics(rp, ci, shp, cfg, win_mode="aligned") for rp, ci, _v, shp in shards]
+    ph.mark("plan")
+    convert.last_convert_phases.clear()
+    convert.last_convert_phases.update(ph.ms)
     if len({(s.pages_contig, s.pmax) for s in stats}) != 1:
         return None
     uni = PlanStatics(
@@ -300,7 +350,7 @@ def _device_shard(shards: list, rank: int, cfg: CSR5Config, device) -> Optional[
     v = np.concatenate([v, np.zeros(pad, v.dtype)])
     return build_csr5_device(
         torch.from_numpy(rp).to(device), torch.from_numpy(ci).to(device),
-        torch.from_numpy(v).to(device), uni, device=device,
+        torch.from_numpy(v).to(device=device, dtype=value_dtype), uni, device=device,
     )
 
 
@@ -315,6 +365,7 @@ def build_shard(
     halo: str = "none",
     convert: str = "host",
     device=DEFAULT_DEVICE,
+    value_dtype=None,
 ) -> DistributedCSR5:
     """Rank ``rank``'s part of the ``world_size``-way row-block partition
     (JAX ``distribute_csr``, ``distributed.py:281-382``, for one shard),
@@ -326,10 +377,16 @@ def build_shard(
     all-gather). ``convert``: ``"host"`` or ``"device"``. Window maps are
     aligned for D > 1 (shards must share one anchoring) and wrapped at
     D = 1 (no cross-shard padding), as JAX does (:359-368); the device
-    route builds aligned maps at any D."""
+    route builds aligned maps at any D. ``value_dtype``: the value plane's
+    type on either route, ``torch.float32``, ``torch.bfloat16`` or
+    ``torch.float64`` (K4's plane); None keeps each route's own rule, the
+    host route narrowing float64 values to float32 as ``build_csr5``
+    does, the device route keeping the values' type."""
     device = resolve_device(device, "build_shard")
     if convert not in ("host", "device"):
         raise ValueError(f"unknown convert {convert!r} (host|device)")
+    if value_dtype not in (None, torch.float32, torch.bfloat16, torch.float64):
+        raise ValueError(f"unknown value_dtype {value_dtype!r} (None, float32, bfloat16, float64)")
     m, n = shape
     D = world_size
     rows_per = -(-m // D)
@@ -347,10 +404,10 @@ def build_shard(
     shards = _shard_csrs(row_ptr, col_idx, values, shape, D, halo_wid)
     local, route = None, "host"
     if convert == "device":
-        local = _device_shard(shards, rank, cfg, device)
+        local = _device_shard(shards, rank, cfg, device, value_dtype)
         route = "device" if local is not None else "host"
     if local is None:
-        local = _host_shard(shards, rank, cfg, "aligned" if D > 1 else "auto", device)
+        local = _host_shard(shards, rank, cfg, "aligned" if D > 1 else "auto", device, value_dtype)
     return DistributedCSR5(shape=tuple(shape), config=cfg, num_devices=D, rows_per_shard=rows_per,
                            rank=rank, local=local, halo=halo_wid, convert_route=route)
 
@@ -364,6 +421,7 @@ def distribute_csr(
     sigma: int = AUTO_TUNED_SIGMA,
     halo: str = "none",
     convert: str = "host",
+    value_dtype=None,
 ) -> DistributedCSR5:
     """This rank's shard of A over ``mesh`` (:func:`build_shard` at the
     mesh's rank and size, on its device). Every rank of the mesh calls it
@@ -371,7 +429,7 @@ def distribute_csr(
     if mesh.rank is None:
         raise ValueError("distribute_csr: this rank is outside the mesh")
     return build_shard(row_ptr, col_idx, values, shape, mesh.rank, mesh.size, sigma, halo,
-                       convert, mesh.device)
+                       convert, mesh.device, value_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -397,14 +455,14 @@ def _exchange(sends: list, recvs: list, mesh: Mesh) -> None:
             req.wait()
 
 
-def halo_exchange(x_shard: torch.Tensor, h_l: int, h_r: int, mesh: Mesh) -> torch.Tensor:
-    """``[left halo | x_shard | right halo]`` along the first axis: the
-    last ``h_l`` rows of rank r - 1's shard and the first ``h_r`` of rank
-    r + 1's, zeros at the edges (JAX's two ``ppermute``s, :404-420)."""
+def _halo_pairs(x_shard: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
+                mesh: Mesh) -> Tuple[list, list]:
+    """The sends and receives of a halo exchange: x_shard's last
+    ``len(left)`` rows to rank r + 1 and first ``len(right)`` to rank
+    r - 1; ``left`` from rank r - 1 and ``right`` from rank r + 1 (an edge
+    rank's outer halo receives nothing)."""
     r, D = mesh.rank, mesh.size
-    rest = tuple(x_shard.shape[1:])
-    left = torch.zeros((h_l,) + rest, dtype=x_shard.dtype, device=x_shard.device)
-    right = torch.zeros((h_r,) + rest, dtype=x_shard.dtype, device=x_shard.device)
+    h_l, h_r = left.shape[0], right.shape[0]
     sends, recvs = [], []
     if h_l:
         if r + 1 < D:
@@ -416,7 +474,17 @@ def halo_exchange(x_shard: torch.Tensor, h_l: int, h_r: int, mesh: Mesh) -> torc
             sends.append((x_shard[:h_r], r - 1))
         if r + 1 < D:
             recvs.append((right, r + 1))
-    _exchange(sends, recvs, mesh)
+    return sends, recvs
+
+
+def halo_exchange(x_shard: torch.Tensor, h_l: int, h_r: int, mesh: Mesh) -> torch.Tensor:
+    """``[left halo | x_shard | right halo]`` along the first axis: the
+    last ``h_l`` rows of rank r - 1's shard and the first ``h_r`` of rank
+    r + 1's, zeros at the edges (JAX's two ``ppermute``s, :404-420)."""
+    rest = tuple(x_shard.shape[1:])
+    left = torch.zeros((h_l,) + rest, dtype=x_shard.dtype, device=x_shard.device)
+    right = torch.zeros((h_r,) + rest, dtype=x_shard.dtype, device=x_shard.device)
+    _exchange(*_halo_pairs(x_shard, left, right, mesh), mesh)
     return torch.cat([left, x_shard, right]) if h_l or h_r else x_shard
 
 
@@ -436,12 +504,135 @@ def distributed_spmv_local(da: DistributedCSR5, x_shard: torch.Tensor, mesh: Mes
                            alpha=1.0) -> torch.Tensor:
     """This rank's y block (``rows_per_shard`` rows) of y = alpha * A @ x
     from its x shard (``ceil(n / D)`` entries): the exchange, then the
-    local product (JAX ``local_step``, :400-431)."""
+    local product (JAX ``local_step``, :400-431). A halo shard's product on
+    the card under NCCL is one captured program from its key's second call
+    (the module's notes); the caller owns every y returned. While a
+    profiler records, each call is a ``csr5.dist.product`` span."""
+    if not trace.recording():
+        return _product(da, x_shard, mesh, alpha)
+    with trace.span("csr5.dist.product", rank=mesh.rank, halo=da.halo,
+                    bytes=da.x_bytes_exchanged(x_shard.element_size())) as attrs:
+        return _product(da, x_shard, mesh, alpha, attrs)
+
+
+#: each shard's captured products, by key; they go with the shard
+_programs: "weakref.WeakKeyDictionary[DistributedCSR5, graphs._Cache]" = weakref.WeakKeyDictionary()
+#: programs a product key keeps at most, each writing its own y
+RING = 8
+
+
+def _graphed(da: DistributedCSR5, x_shard: torch.Tensor, mesh: Mesh) -> bool:
+    """True where the product runs as a captured program: a halo shard, x
+    on the card, an NCCL mesh, and no caller's capture or program around
+    the call (there the body runs inline, as a nested solver does)."""
+    return (da.halo is not None and x_shard.is_cuda and mesh.backend == "nccl"
+            and not graphs._inline())
+
+
+def _product(da: DistributedCSR5, x_shard: torch.Tensor, mesh: Mesh, alpha, attrs=None):
+    ring, mode, prog = None, "eager", None
+    if _graphed(da, x_shard, mesh):
+        cache = _programs.get(da)
+        if cache is None:
+            cache = _programs[da] = graphs._Cache()
+        key = (id(da.local), tuple(x_shard.shape), x_shard.dtype, x_shard.device, alpha)
+        ring = cache.get(key)
+        if ring is None and not cache.first_call(key, ()):
+            ring = cache.put(key, _Ring(da, x_shard, mesh, alpha))
+    got = None if ring is None else ring(x_shard)
+    if got is None:
+        y = _eager_product(da, x_shard, mesh, alpha)
+    else:
+        y, prog, captured = got
+        mode = "capture" if captured else "replay"
+    if attrs is not None:
+        attrs.update(mode=mode, program=prog)
+    return y
+
+
+def _eager_product(da: DistributedCSR5, x_shard: torch.Tensor, mesh: Mesh, alpha) -> torch.Tensor:
     if da.halo is not None:
         x_full = halo_exchange(x_shard, da.halo[0], da.halo[1], mesh)
     else:
         x_full = all_gather_cat(x_shard, mesh)[: da.n]
     return csr5_spmv(da.local, x_full, alpha)[: da.rows_per_shard]
+
+
+def _counted() -> bool:
+    """True where torch counts the holders of a storage (:func:`_use_count`)."""
+    return hasattr(torch._C, "_storage_Use_Count")
+
+
+def _use_count(t: torch.Tensor) -> int:
+    """The tensors (views among them) that hold ``t``'s storage."""
+    return torch._C._storage_Use_Count(t.untyped_storage()._cdata)
+
+
+class _Ring:
+    """A halo product key's programs (module notes): the kept buffer
+    ``[left | x | right]``, and up to :data:`RING` programs captured on it,
+    each with its own y (one program, its y cloned a call, where torch
+    cannot count a y's holders). It holds the shard's matrix, not the
+    shard."""
+
+    def __init__(self, da: DistributedCSR5, x_shard: torch.Tensor, mesh: Mesh, alpha):
+        h_l, h_r = da.halo
+        n, dev = x_shard.shape[0], x_shard.device
+        self.buf = torch.zeros((h_l + n + h_r,) + tuple(x_shard.shape[1:]), dtype=x_shard.dtype,
+                               device=dev)
+        self.x_mid = self.buf[h_l: h_l + n]
+        pairs = _halo_pairs(self.x_mid, self.buf[:h_l], self.buf[h_l + n:], mesh)
+        self.capture = functools.partial(_capture_program, da.local, da.rows_per_shard, self.buf,
+                                         self.x_mid, pairs, mesh, alpha, dev)
+        self.progs: list = []
+        self.free_at: list = []  # each y's use count while nothing else holds it
+        self.turn = 0
+
+    def __call__(self, x_shard: torch.Tensor) -> Optional[Tuple[torch.Tensor, int, bool]]:
+        """(y, the program's id, whether it was captured in this call), or
+        None where every one of :data:`RING` programs' y is held (the call
+        then runs the eager body)."""
+        counted, k = _counted(), len(self.progs)
+        if counted:
+            free = next((i % k for i in range(self.turn, self.turn + k)
+                         if _use_count(self.progs[i % k].outputs) == self.free_at[i % k]), None)
+        else:
+            free = 0 if k else None
+        captured = free is None and k < (RING if counted else 1)
+        if captured:
+            self.progs.append(self.capture())
+            self.free_at.append(_use_count(self.progs[-1].outputs) if counted else None)
+            free = k
+        if free is None:
+            return None
+        prog = self.progs[free]
+        self.turn = (free + 1) % len(self.progs)
+        prog.run({"x_shard": x_shard})
+        y = prog.outputs.detach() if counted else prog.outputs.clone()
+        return y, prog.record.program, captured
+
+
+def _capture_program(local: CSR5Matrix, rows: int, buf: torch.Tensor, x_mid: torch.Tensor,
+                     pairs: Tuple[list, list], mesh: Mesh, alpha,
+                     dev: torch.device) -> graphs._Program:
+    """One program of a ring: the exchange into ``buf``'s halo slots, then
+    the local product on all of ``buf``; ``x_mid`` is its static input."""
+
+    def exchange(_x_full):
+        _exchange(*pairs, mesh)
+
+    def spmv(x_full):
+        return csr5_spmv(local, x_full, alpha)[:rows]
+
+    def distributed_spmv_local(x_full, exchange, spmv):  # the body, named for its record
+        exchange(x_full)
+        return spmv(x_full)
+
+    with torch.cuda.device(dev):
+        return graphs.capture(distributed_spmv_local,
+                              {"x_full": buf, "exchange": exchange, "spmv": spmv},
+                              {"x_shard": x_mid}, dev, keep=(local,), exchange="exchange",
+                              cloned=not _counted())
 
 
 def distributed_spmv(da: DistributedCSR5, x: torch.Tensor, mesh: Mesh, alpha=1.0) -> torch.Tensor:

@@ -55,6 +55,10 @@ there:
   program id) and ``csr5.graph.launch`` around ``graph.replay()``.
 - **No fallback.** A capture or replay that fails raises; nothing is
   retried eagerly or moved to the CPU.
+- **Other programs.** :func:`capture` is the warm-up and capture itself,
+  given the static buffers: ``parallel/distributed.py`` captures a
+  distributed product with it, whose halo exchange runs on NCCL's stream
+  inside the graph and is placed in the record apart from the product.
 
 As under ``jax.jit``, a program replays the tensors its capture read: a
 matrix changed in place is read anew, one swapped in behind an object the
@@ -199,12 +203,18 @@ class _Products:
     SpMVs) lies in the graph ``stream`` captures: (first, end) positions
     among the graph's device operations (:data:`DEVICE_OPS`, in the order
     they were captured, which on one stream is the order they run), by
-    argument name. ``spans`` turns None where ``libcuda`` cannot say."""
+    argument name, and the kernels each call enqueued (``kernels``). The
+    graph holds what every stream of the capture enqueued, a process
+    group's stream among them. ``spans`` turns None where ``libcuda``
+    cannot say."""
 
     def __init__(self, stream: torch.cuda.Stream):
         self.stream = ctypes.c_void_p(stream.cuda_stream)
         self.known: Dict[int, str] = {}
         self.spans: Optional[Dict[str, List[Tuple[int, int]]]] = {}
+        self.kernels: Dict[str, List[int]] = {}
+        #: the kernels among the device operations of the last read
+        self.seen_kernels = 0
 
     def _ops(self) -> Optional[int]:
         """The device operations captured so far."""
@@ -216,19 +226,24 @@ class _Products:
                 or not graph.value):
             return None
         kinds = _node_types(graph.value, self.known)
-        return None if kinds is None else sum(1 for k in kinds if k in DEVICE_OPS)
+        if kinds is None:
+            return None
+        self.seen_kernels = kinds.count("kernel")
+        return sum(1 for k in kinds if k in DEVICE_OPS)
 
     def marked(self, name: str, fn: Callable) -> Callable:
         """``fn``, noting where each of its calls lies under ``name``."""
 
         def call(*args, **kwargs):
             first = self._ops() if self.spans is not None else None
+            k0 = self.seen_kernels
             out = fn(*args, **kwargs)
             end = self._ops() if first is not None else None
             if end is None:
                 self.spans = None
             elif self.spans is not None:
                 self.spans.setdefault(name, []).append((first, end))
+                self.kernels.setdefault(name, []).append(self.seen_kernels - k0)
             return out
 
         return call
@@ -355,7 +370,9 @@ class _Program:
     record: trace.Capture
     keep: tuple = ()
 
-    def replay(self, arguments: Mapping[str, Any]):
+    def run(self, arguments: Mapping[str, Any]) -> None:
+        """Copy the tensor arguments into the static inputs, then replay;
+        the outputs are overwritten in place."""
         for k, buf in self.inputs.items():
             buf.copy_(arguments[k])
         if trace.recording():
@@ -363,21 +380,28 @@ class _Program:
                 self.graph.replay()
         else:
             self.graph.replay()
+
+    def replay(self, arguments: Mapping[str, Any]):
+        """:meth:`run`, then clones of the outputs, the caller's own."""
+        self.run(arguments)
         return _clone(self.outputs)
 
 
 def _program(solver: str, loops: Mapping[str, int], graph, inputs: Dict[str, torch.Tensor],
              outputs: Any, nodes: Optional[Dict[str, int]], launches: Dict[str, int],
              products: Optional[Mapping[str, Sequence[Tuple[int, int]]]] = None,
-             keep: tuple = ()) -> _Program:
+             keep: tuple = (), cloned: bool = True, **fields) -> _Program:
     """A program and its capture record: the copies, nodes and clones of
-    one replay, the launches its capture enqueued and where its operators'
-    calls lie."""
+    one replay (none where its caller takes the outputs themselves, not
+    ``cloned``), the launches its capture enqueued and where its
+    operators' calls lie (``fields``: the record's other fields, such as
+    the exchange's place)."""
     record = trace.note_capture(
         solver=solver, loops=dict(loops), inputs=len(inputs),
-        outputs=sum(1 for t in _tensors(outputs) if t.numel()), nodes=nodes,
+        outputs=sum(1 for t in _tensors(outputs) if t.numel()) if cloned else 0, nodes=nodes,
         launches=dict(launches),
-        products=None if products is None else {k: tuple(v) for k, v in products.items()})
+        products=None if products is None else {k: tuple(v) for k, v in products.items()},
+        **fields)
     return _Program(graph, inputs, outputs, record, keep)
 
 
@@ -390,10 +414,45 @@ def _stream(dev: torch.device) -> torch.cuda.Stream:
 
 def _capture(body: Callable, arguments: Dict[str, Any], loops: Sequence[str],
              dev: torch.device) -> _Program:
-    """Warm ``body`` up with the loop counts at 1, then capture it whole."""
+    """Copy the tensor arguments into static inputs, warm ``body`` up with
+    the loop counts at 1, then capture it whole."""
     inputs = {k: v.clone() for k, v in arguments.items() if isinstance(v, torch.Tensor)}
-    call = {**arguments, **inputs}
-    warm = {**call, **{k: min(call[k], 1) for k in loops}}
+    # a callable stays out (its death drops the program) unless it cannot
+    # be watched; the objects it refers to stay in, so no key's ids recur
+    fns = [v for v in arguments.values() if callable(v)]
+    keep = (*(r for fn in fns for r in referents(fn)), *(fn for fn in fns if not _watchable(fn)))
+    return capture(body, {**arguments, **inputs}, inputs, dev,
+                   loops={k: arguments[k] for k in loops}, keep=keep)
+
+
+def _skipped(*_args, **_kwargs) -> None:
+    """An operator left out of a warm-up."""
+
+
+def capture(body: Callable, call: Dict[str, Any], inputs: Dict[str, torch.Tensor],
+            dev: torch.device, *, loops: Optional[Mapping[str, int]] = None, keep: tuple = (),
+            exchange: Optional[str] = None, cloned: bool = True) -> _Program:
+    """``body(**call)`` as a program: warmed up once on the device's capture
+    stream (the ``loops`` counts at 1), then captured whole on it and
+    instantiated. ``inputs`` are the static buffers, among ``call``'s
+    tensors, that a replay copies its arguments into; the callables of
+    ``call`` are the operators whose calls the record places. A program
+    that is only :meth:`_Program.run`, its outputs taken as they are, is
+    not ``cloned``: its record counts no clones.
+
+    ``exchange`` names the operator that exchanges over NCCL, on its
+    process group's stream: its one call is placed in the record's
+    ``exchange`` and the kernels it enqueued in ``nccl_kernels``, not in
+    ``products``. The warm-up leaves it out: run there, it would be one
+    exchange more than the peers make, and every later one would pair with
+    the wrong peer call. So its process group must have made its
+    communicator before (an eager call of the same exchange), and it
+    captures in thread-local mode, since the group's watchdog thread
+    queries events meanwhile."""
+    loops = dict(loops or {})
+    warm = {**call, **{k: min(v, 1) for k, v in loops.items()}}
+    if exchange is not None:
+        warm[exchange] = _skipped
     stream = _stream(dev)
     stream.wait_stream(torch.cuda.current_stream(dev))
     with _nested():
@@ -403,17 +462,19 @@ def _capture(body: Callable, arguments: Dict[str, Any], loops: Sequence[str],
         before = read_launches()
         reads, products = _Reads(), _Products(stream)
         marked = {k: products.marked(k, v) for k, v in call.items() if callable(v)}
-        with torch.cuda.graph(graph, stream=stream), reads:
+        mode = "global" if exchange is None else "thread_local"
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode=mode), reads:
             outputs = body(**{**call, **marked})
         counted = launches_between(before, read_launches())
     nodes = graph_nodes(graph)
     graph.instantiate()
-    # a callable stays out (its death drops the program) unless it cannot
-    # be watched; the objects it refers to stay in, so no key's ids recur
-    fns = [v for v in arguments.values() if callable(v)]
-    keep = (*(r for fn in fns for r in referents(fn)), *(fn for fn in fns if not _watchable(fn)))
-    return _program(body.__name__, {k: call[k] for k in loops}, graph, inputs, outputs, nodes,
-                    counted, products.spans, (*keep, *reads.read.values()))
+    placed, fields = products.spans, {}
+    if exchange is not None:
+        spans = None if placed is None else placed.pop(exchange, None)
+        fields = {"exchange": None if spans is None else spans[0],
+                  "nccl_kernels": None if spans is None else products.kernels[exchange][0]}
+    return _program(body.__name__, loops, graph, inputs, outputs, nodes, counted, placed,
+                    (*keep, *reads.read.values()), cloned, **fields)
 
 
 def _watchable(obj: Any) -> bool:

@@ -15,6 +15,10 @@ span site costs that one read and a branch (:func:`recording`).
   ============================  ==========================================
   ``csr5.solve``                one call of a solver (``utils/graphs.py``)
   ``csr5.graph.launch``         a replay's ``graph.replay()``
+  ``csr5.dist.product``         one call of ``distributed_spmv_local``
+                                (``parallel/distributed.py``): its rank,
+                                program id, mode, halo widths and the x
+                                bytes it exchanges
   ============================  ==========================================
 
 - **One clock.** A span opened while recording first opens and closes
@@ -106,7 +110,10 @@ class Capture:
     capture enqueued, by launch counter. ``products`` holds, for each
     operator the solver was given (by argument name), where each of its
     calls lies: (first, end) positions among the graph's device
-    operations, in the order they run; None where it could not be read."""
+    operations, in the order they run; None where it could not be read.
+    A distributed product's program also places its halo exchange
+    (``exchange``, the same kind of position) and counts the NCCL kernels
+    the exchange enqueued (``nccl_kernels``); None elsewhere."""
 
     program: int
     solver: str
@@ -116,6 +123,8 @@ class Capture:
     nodes: Optional[Dict[str, int]]
     launches: Dict[str, int]
     products: Optional[Dict[str, Tuple[Tuple[int, int], ...]]]
+    exchange: Optional[Tuple[int, int]] = None
+    nccl_kernels: Optional[int] = None
 
 
 class Recorder:

@@ -4,14 +4,21 @@ can import them, that build the same matrices as the tests from the same
 seeds and return numpy results. All the scenarios of a test file run in
 one spawn (:func:`run`), on meshes of the first D ranks."""
 
+import collections
+import contextlib
+import types
+from unittest import mock
+
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from benchmark_spmv_using_csr5_tpu_torch.parallel import distributed as pd
 from benchmark_spmv_using_csr5_tpu_torch.parallel import distributed_dia as pdd
 from benchmark_spmv_using_csr5_tpu_torch.parallel import scaling
-from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+from benchmark_spmv_using_csr5_tpu_torch.utils import graphs, synth, trace
+from csr5_bench.generators import stencil27_zstack
 
 
 def _halo_round():
@@ -108,6 +115,139 @@ def _cg(mesh, iters=100):
     return {"x": pd.all_gather_cat(x, mesh)[: a.shape[0]].numpy()}
 
 
+#: HPCG's local grid at a test's size (deep enough in z that a halo of one
+#: lane-rounded plane each way moves less than an all-gather at D = 2); D
+#: of them are stacked along z
+ZSTACK = {"nx": 8, "ny": 8, "nz": 8}
+#: a seed past 32 signed bits, as the benchmark's runs are given
+ZSEED = 2**31 + 12345
+DTYPES = {None: None, "float32": torch.float32, "float64": torch.float64}
+
+
+def zstack(D):
+    """HPCG's float64 matrix over a 1 x 1 x D process grid of
+    :data:`ZSTACK` local grids: host ``(row_ptr, col, val, shape)``."""
+    g = stencil27_zstack.generate({**ZSTACK, "process_grid": [1, 1, D]}, ZSEED, "cpu", rank=0)
+    return g["row_ptr"].numpy(), g["col"].numpy(), g["val"].numpy(), g["shape"]
+
+
+def zstack_x(n, k):
+    """The k-th seeded x of n float64 values, uniform in [-1, 1)."""
+    return torch.from_numpy(np.random.default_rng(k).uniform(-1.0, 1.0, n))
+
+
+def _zstack(mesh, convert="device", value_dtype=None, alpha=1.0):
+    """The distributed product on the z-stacked stencil (halo "auto": one
+    plane each way): the global y, then two local products in a row (the
+    first kept to see that the second leaves it), then the spans one
+    more product records with the profiler off and on."""
+    rp, ci, v, shape = zstack(mesh.size)
+    da = pd.distribute_csr(rp, ci, v, shape, mesh, halo="auto", convert=convert,
+                           value_dtype=DTYPES[value_dtype])
+    vec = da.local.val_tiles.dtype
+    n_per = -(-shape[1] // mesh.size)
+    y = pd.distributed_spmv(da, zstack_x(shape[1], 0).to(vec), mesh, alpha)
+    shards = [pd.shard_of(zstack_x(shape[1], k).to(vec), n_per, mesh) for k in (1, 2)]
+    y1 = pd.distributed_spmv_local(da, shards[0], mesh, alpha)
+    first = y1.clone()
+    y2 = pd.distributed_spmv_local(da, shards[1], mesh, alpha)
+    named = lambda: [s for s in trace.spans() if s.name == "csr5.dist.product"]  # noqa: E731
+    before = len(named())
+    pd.distributed_spmv_local(da, shards[0], mesh, alpha)
+    off = len(named()) - before
+    with profile(activities=[ProfilerActivity.CPU]):
+        pd.distributed_spmv_local(da, shards[0], mesh, alpha)
+    spans = named()[before:]
+    return {"y": y.numpy(), "halo": da.halo, "route": da.convert_route, "plane": str(vec),
+            "y1": y1.numpy(), "y2": y2.numpy(), "distinct": y1.data_ptr() != y2.data_ptr(),
+            "first_kept": bool(torch.equal(y1, first)), "spans_off": off,
+            "spans": [s.attrs for s in spans]}
+
+
+@contextlib.contextmanager
+def _graphs_on_the_cpu():
+    """The distributed product's program path on CPU tensors over gloo,
+    ``utils/graphs.py::capture`` as written: its warm-up runs for real,
+    its capture records the exchange and the local product without
+    running them (as a CUDA graph records device work), and a replay runs
+    what was recorded. Yields a counter of the exchanges run."""
+    real_exchange, real_spmv = pd._exchange, pd.csr5_spmv
+    made = collections.Counter()
+
+    def exchange(sends, recvs, mesh):
+        made["exchanges"] += 1
+        real_exchange(sends, recvs, mesh)
+
+    class Graph:
+        def __init__(self, keep_graph=False):
+            self.ops = []
+
+        def replay(self):
+            for op in self.ops:
+                op()
+
+        def instantiate(self):
+            pass
+
+        def raw_cuda_graph(self):
+            return 0
+
+    @contextlib.contextmanager
+    def capturing(graph, stream=None, capture_error_mode="global"):
+        def record_exchange(sends, recvs, mesh):
+            graph.ops.append(lambda: exchange(sends, recvs, mesh))
+
+        def record_spmv(local, x, alpha=1.0):
+            out = real_spmv(local, x, alpha)
+            graph.ops.append(lambda: out.copy_(real_spmv(local, x, alpha)))
+            return out
+
+        with mock.patch.object(pd, "_exchange", record_exchange), \
+                mock.patch.object(pd, "csr5_spmv", record_spmv):
+            yield
+
+    nothing = lambda *a, **k: contextlib.nullcontext()  # noqa: E731
+    stream = types.SimpleNamespace(cuda_stream=None, wait_stream=lambda other: None)
+    patches = [
+        (pd, "_graphed", lambda da, x, mesh: da.halo is not None and not graphs._inline()),
+        (pd, "_exchange", exchange), (graphs, "_stream", lambda dev: stream),
+        (graphs, "_libcuda", lambda: None), (torch.cuda, "current_stream", lambda *a: None),
+        (torch.cuda, "is_current_stream_capturing", lambda: False),
+        (torch.cuda, "stream", nothing), (torch.cuda, "device", nothing),
+        (torch.cuda, "CUDAGraph", Graph), (torch.cuda, "graph", capturing),
+    ]
+    with contextlib.ExitStack() as stack:
+        for obj, name, new in patches:
+            stack.enter_context(mock.patch.object(obj, name, new))
+        yield made
+
+
+def _zstack_held(mesh, hold=(0,), calls=pd.RING + 4):
+    """The program path (:func:`_graphs_on_the_cpu`) on the z-stacked
+    stencil: ``calls`` local products of the seeded x shards 0, 1, 2, ...
+    (mod 3); the ranks in ``hold`` keep every y (each call after the first
+    captures another program, up to ``RING``, then runs the eager body),
+    the others drop each (one capture, then replays). Every y, each
+    call's mode, the exchanges run, and whether each held y kept its
+    product."""
+    rp, ci, v, shape = zstack(mesh.size)
+    da = pd.distribute_csr(rp, ci, v, shape, mesh, halo="auto", convert="device")
+    n_per = -(-shape[1] // mesh.size)
+    shards = [pd.shard_of(zstack_x(shape[1], k), n_per, mesh) for k in range(3)]
+    ys, held = [], []
+    with _graphs_on_the_cpu() as made, profile(activities=[ProfilerActivity.CPU]):
+        for k in range(calls):
+            y = pd.distributed_spmv_local(da, shards[k % 3], mesh)
+            ys.append(y.numpy().copy())
+            if mesh.rank in hold:
+                held.append(y)
+            del y
+    spans = [s for s in trace.spans() if s.name == "csr5.dist.product"][-calls:]
+    return {"ys": np.stack(ys), "modes": [s.attrs["mode"] for s in spans],
+            "exchanges": made["exchanges"],
+            "held_kept": all(np.array_equal(h.numpy(), ys[i]) for i, h in enumerate(held))}
+
+
 def _dia_spmv(mesh, name, alpha=1.0):
     a = matrix(name)
     dd = pdd.distribute_dia(a, mesh)
@@ -134,6 +274,8 @@ SCENARIOS = {
     "dia_spmv": _dia_spmv,
     "dia_spmm": _dia_spmm,
     "weak": _weak,
+    "zstack": _zstack,
+    "zstack_held": _zstack_held,
 }
 
 
