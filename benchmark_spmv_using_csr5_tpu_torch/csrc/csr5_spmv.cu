@@ -19,6 +19,24 @@
 // gathered through the read-only cache; on banded matrices neighbouring
 // lanes hit the same lines.
 //
+// How K1 issues its loads (tile_products_grouped): at kron23, a power-law
+// graph whose x (33.5 MB) L2 mostly holds, one gather of x waiting on its
+// own column load took 3.82 ms a SpMV. K1 now forms a lane's products in
+// groups of kUnroll = 8 rows: the group's 8 gathers go out together, then
+// the next group's column and value loads, then the group's adds in s
+// order; 2.69 ms (NVIDIA H100 80GB HBM3, 700 W). Every variant that keeps
+// eight or more gathers in flight (kUnroll 4-16, 5-10 blocks an SM) lands
+// at 2.69-2.71 ms: L2's rate of single-sector reads, about 96 G gathers a
+// second, bounds it now, not the wait on each load. Fewer blocks an SM
+// alone (shared memory padded to 11 or 7 blocks) moves nothing.
+// __launch_bounds__(128, kMinBlocks = 8) lets a thread take the 56-62
+// registers the group ahead needs (9 blocks an SM at kron23) and keeps a
+// larger kUnroll or a tighter bound, which spill, from being chosen. Not
+// taken, each measured beside the groups: K4's row-end prefix (1.4 %
+// slower at kron23 and 2.9 % at banded500k: marking the row ends costs a
+// tile a win_map pass and three barriers more), and plain stores for the
+// rows inside a tile (0.3 % slower at kron23).
+//
 // Where the loads sit in the caches (ResidentLoads, csr5_tile.cuh): on a
 // power-law graph the gathers of x hit no pattern, and when the planes
 // stream through L1 and L2 at normal priority beside them, every gather
@@ -40,7 +58,8 @@
 // device (grant_smem), and only above 48 KB: a launch is then nothing but
 // the launch, as a captured CUDA graph of a solver needs.
 //
-// Deferred: vectorised or TMA loads, and several tiles per block.
+// Deferred: vectorised or TMA loads, several tiles per block, and fewer L2
+// sectors per gather (reordering the vertices for locality in x).
 
 #include "csr5_tile.cuh"
 
@@ -48,8 +67,70 @@ namespace {
 
 using namespace csr5;
 
+// K1's rows per group: a lane's x gathers of a group go out together, and
+// the next group's plane loads are in flight during its adds
+constexpr int kUnroll = 8;
+// K1's resident blocks per SM that the compiler must allow, which caps a
+// thread's registers at 65,536 / (128 * kMinBlocks)
+constexpr int kMinBlocks = 8;
+
+// Step 1 of K1 (csr5_tile.cuh::tile_products, with the same products and
+// the same running sum in s order) in groups of kUnroll rows, one group
+// ahead: the group's kUnroll x gathers go out together, then the next
+// group's column and value loads, then the group's adds; sigma % kUnroll
+// rows take a remainder loop.
 template <typename V>
-__global__ void __launch_bounds__(kLanes)
+__device__ __forceinline__ float tile_products_grouped(const int32_t* __restrict__ col,
+                                                       const V* __restrict__ val,
+                                                       const float* __restrict__ x, int sigma,
+                                                       int l, float* prefix,
+                                                       const ResidentLoads& ld) {
+    const int32_t* cl = col + l;
+    const V* vl = val + l;
+    const int full = sigma - sigma % kUnroll;  // rows in whole groups
+    // the plane loads of rows s .. s + kUnroll - 1 of this lane
+    auto load = [&](int s, int (&c)[kUnroll], V (&v)[kUnroll]) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            c[u] = ld.plane(cl + (s + u) * kLanes);
+            v[u] = ld.plane(vl + (s + u) * kLanes);
+        }
+    };
+    int c0[kUnroll];
+    V v0[kUnroll];
+    if (full > 0) load(0, c0, v0);
+    float run = 0.f;
+    for (int s = 0; s < full; s += kUnroll) {
+        float xv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) xv[u] = ld.gather(x + c0[u]);
+        int c1[kUnroll];
+        V v1[kUnroll];
+        const bool more = s + kUnroll < full;
+        if (more) load(s + kUnroll, c1, v1);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            run = __fadd_rn(run, __fmul_rn(to_f32(v0[u]), xv[u]));
+            prefix[(s + u) * kLanes + l] = run;
+        }
+        if (more) {
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                c0[u] = c1[u];
+                v0[u] = v1[u];
+            }
+        }
+    }
+    for (int s = full; s < sigma; ++s) {
+        const int e = s * kLanes + l;
+        run = __fadd_rn(run, __fmul_rn(to_f32(ld.plane(val + e)), ld.gather(x + ld.plane(col + e))));
+        prefix[e] = run;
+    }
+    return run;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kLanes, kMinBlocks)
 csr5_spmv_tile_kernel(const int32_t* __restrict__ col,
                       const V* __restrict__ val,
                       const int32_t* __restrict__ win_map,
@@ -66,7 +147,7 @@ csr5_spmv_tile_kernel(const int32_t* __restrict__ col,
     const int l = threadIdx.x;
     const size_t tile0 = (size_t)t * sigma * kLanes;
     const ResidentLoads ld(share);
-    const float run = tile_products(col + tile0, val + tile0, x, sigma, l, prefix, ld);
+    const float run = tile_products_grouped(col + tile0, val + tile0, x, sigma, l, prefix, ld);
     lane_carry(run, l, warp_total, carry);
     window_pass(win_map + (size_t)t * capw, ld.plane(tile_ptr + t), capw, win_rel, prefix, carry,
                 y, l, ld);

@@ -4,7 +4,9 @@
 //
 //   1. each lane forms its sigma products in float32 and keeps their
 //      inclusive within-lane prefix in shared memory (sigma * 128 * 4 B):
-//      tile_products (raw int32 columns) or tile_products_packed (the
+//      tile_products (raw int32 columns; K3's, while K1 forms the same
+//      products in groups of rows loaded a group ahead,
+//      csr5_spmv.cu::tile_products_grouped) or tile_products_packed (the
 //      uint16 column codes of col_packed);
 //   2. lane_carry: the 128 lane totals get an exclusive scan (warp shuffles
 //      plus one combine through shared memory): carry[l];

@@ -3,8 +3,10 @@ kernels.
 
 K1 (``csrc/csr5_spmv.cu``) replaces the JAX package's Pallas kernel
 ``ops/csr5_kernel.py::_spmv_kernel`` at R=1. It takes one ``(sigma, 128)``
-tile per 128-thread block and adds each tile's row partial sums into a
-zeroed ``m_pad`` float32 y with atomics; y is then cut to ``[:m]``.
+tile per 128-thread block, forms a lane's products in groups of
+:data:`K1_UNROLL` rows with the next group's loads in flight, and adds
+each tile's row partial sums into a zeroed ``m_pad`` float32 y with
+atomics; y is then cut to ``[:m]``.
 
 K1p and K2p are K1 and K2 streaming the packed column plane
 ``col_packed`` (two uint16 codes ``lane | local_page << 7`` per int32
@@ -53,9 +55,13 @@ from ..models.formats import CSR5Matrix
 from ..utils import cuda_build
 
 LANES = 128
-#: the kernel keeps (sigma + 1) * 128 float32 in shared memory per block;
-#: Hopper gives a block at most 227 KB (232,448 B), so sigma <= 452
+#: the kernel keeps (sigma + 1) * 128 float32 in shared memory per block
+#: (:func:`k1_smem_bytes`); Hopper gives a block at most 227 KB (232,448 B),
+#: so sigma <= 452
 MAX_SIGMA = 448
+#: K1's rows per group (``csrc/csr5_spmv.cu::kUnroll``): a lane's first
+#: ``sigma - sigma % K1_UNROLL`` rows are loaded a whole group ahead
+K1_UNROLL = 8
 
 #: K1 launches so far in this process (the wrapper adds one per launch)
 launches = 0
@@ -69,6 +75,11 @@ spmm_packed_launches = 0
 resident_launches = 0
 #: the share of x's lines the last K1 or K1p launch gathered with evict-last
 last_x_resident_share = 0.0
+#: the share of a lane's rows the last K1 launch loaded in whole groups
+#: ahead (:func:`k1_grouped_share`)
+last_grouped_share = 0.0
+#: the dynamic shared memory a block of the last K1 launch took (bytes)
+last_smem_bytes = 0
 #: the largest page list the packed codes can address (9 bits)
 MAX_PACKED_PAGES = 512
 
@@ -220,13 +231,31 @@ def _residency(lib, dev: torch.device, x_bytes: int) -> float:
     return share
 
 
-def _launched(packed: bool, share: float) -> None:
-    """Counts one K1 or K1p launch and the share of x it held in L2."""
+def k1_smem_bytes(sigma: int) -> int:
+    """K1's dynamic shared memory per block (``csrc/csr5_spmv.cu``'s
+    launch): the (sigma, 128) float32 within-lane prefixes and the 128 lane
+    carries."""
+    return (sigma + 1) * LANES * 4
+
+
+def k1_grouped_share(sigma: int) -> float:
+    """The share of a lane's ``sigma`` rows that K1 loads in whole groups of
+    :data:`K1_UNROLL`, one group ahead; the rest take its remainder loop."""
+    return (sigma - sigma % K1_UNROLL) / sigma
+
+
+def _launched(packed: bool, share: float, sigma: int) -> None:
+    """Counts one K1 or K1p launch and the share of x it held in L2; a K1
+    launch also sets :data:`last_grouped_share` and :data:`last_smem_bytes`
+    from its sigma."""
     global launches, packed_launches, resident_launches, last_x_resident_share
+    global last_grouped_share, last_smem_bytes
     if packed:
         packed_launches += 1
     else:
         launches += 1
+        last_grouped_share = k1_grouped_share(sigma)
+        last_smem_bytes = k1_smem_bytes(sigma)
     if share > 0.0:
         resident_launches += 1
     last_x_resident_share = share
@@ -284,7 +313,7 @@ def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     if rc != 0:
         msg = lib.csr5_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"csr5_spmv_cuda: kernel launch failed: {msg} ({rc})")
-    _launched(packed, share)
+    _launched(packed, share, sig)
     return y[: a5.m]
 
 

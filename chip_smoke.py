@@ -20,7 +20,11 @@ Phases, each of which must pass:
    scipy, on the odd shapes of the TPU sweep (``scripts/smoke_chip.py``):
    one tile, few tiles, every sigma, aligned maps, a scattered band, a
    power law, one dense row over many tiles, FEM blocks and the edge-case
-   matrices, each with float32 and with bfloat16 value planes. On their
+   matrices, then K1's own sigmas (``K1_SIGMAS``: less than a group of
+   rows, whole groups, remainders) on a band and on a power law with
+   aligned maps, a dense row at sigma 13 and a diagonal at the largest
+   sigma K1 takes on a raw plane (447: a sigma % 16 == 0 plane is packed
+   and runs K1p), each with float32 and with bfloat16 value planes. On their
    integer-valued data the three agree exactly; one case of random floats
    holds the kernel to 1e-5 of each row's absolute sum;
 3. the main path through the CLI and harness: ``example.mtx`` and
@@ -42,7 +46,8 @@ Phases, each of which must pass:
    plain versions (the card's own DIA-vs-CSR5 crossover), K6 at R = 8,
    and the device time of each kernel by ``torch.profiler``; K1's y once
    more bit-equal to the plain version, with the share of x it held in L2,
-   its ``resident_launches`` and its device time over ``K1_US_BEFORE``;
+   its ``resident_launches``, its share of rows loaded a group ahead, its
+   shared memory a block and its device time over ``K1_US_BEFORE``;
 7. kernels K2 (CSR5 SpMM) and K7 (band-block SpMM) against their plain
    versions on the card and against scipy, on the odd shapes of phases 2
    and 4: R in {1, 2, 5, 8, 16, 17} (K7 also 32, one pass over the plane,
@@ -124,7 +129,7 @@ Phases, each of which must pass:
     banded500k sigma 16 (each with its staging mode), with device times by
     torch.profiler, each one's bound from this run's inputs and the
     cuSPARSE yardstick; K1p's residency line as K1's in phase 6, against
-    ``K1P_US_BEFORE``;
+    ``K1P_US_BEFORE``, and K1's on the raw plane against ``K1_US_BEFORE``;
 16. the benchmark suite on the card: ``bench/suite.py`` in a subprocess
     (so banded20M's 24 GB of host memory is freed after it), its lines
     relayed; every one of its 18 cases (``dist1_banded500k`` with its
@@ -287,6 +292,33 @@ def sweep_cases(synth, CSR5Config):
     for name, make in synth.EDGE_CASE_MATRICES.items():
         cases.append((f"edge_{name}", make(), None, "auto"))
         cases.append((f"edge_{name}_aligned", make(), None, "aligned"))
+    return cases
+
+
+#: the sigmas of phase 2's K1 cases beyond the sweep's (8, 16, 24, 32):
+#: below, at and past a group of K1's rows (``csr5_kernel.K1_UNROLL``),
+#: and with a remainder after whole groups
+K1_SIGMAS = (1, 3, 7, 9, 13, 31, 33, 47)
+
+
+def k1_sigma_cases(synth, sp, np, CSR5Config, max_sigma):
+    """(name, scipy matrix, config, win_mode) of phase 2's K1-only cases:
+    every sigma of K1_SIGMAS on a band (wrapped maps) and a power law
+    (aligned maps), a dense row over many tiles, and a diagonal at the
+    largest sigma below ``max_sigma`` that is no multiple of 16 (the build
+    keeps the raw plane, so K1 and not K1p runs), where a block takes
+    nearly the most shared memory K1 asks for and every position ends a
+    row."""
+    cases = []
+    for sig in K1_SIGMAS:
+        cases.append((f"bandedB4_s{sig}", synth.banded(700, 9), CSR5Config(sigma=sig), "auto"))
+        cases.append((f"powerlaw_s{sig}_aligned", synth.power_law(3000, 3000, 8.0),
+                      CSR5Config(sigma=sig), "aligned"))
+    cases.append(("fasttrack_s13", synth.single_dense_row(64, 8192), CSR5Config(sigma=13), "auto"))
+    sig = max(s for s in range(1, max_sigma + 1) if s % 16)
+    m = 2 * sig * 128 + 77
+    diag = sp.diags(np.arange(m) % 4 + 1.0, format="csr")
+    cases.append((f"diag_s{sig}", diag, CSR5Config(sigma=sig), "auto"))
     return cases
 
 
@@ -507,7 +539,8 @@ def device_us(fn, *args, match: str, n: int = 50):
 def residency_line(name, a5, x, us, us_before, card) -> str:
     """One more launch of K1 or K1p on ``a5`` and ``x``: whether y is bit
     for bit the plain version's (integer data), the share of x it held in
-    L2 and the launches that held one, and its device time against the
+    L2 and the launches that held one, K1's share of rows loaded a group
+    ahead and its shared memory a block, and its device time against the
     time before the loads were placed."""
     import torch
 
@@ -521,8 +554,12 @@ def residency_line(name, a5, x, us, us_before, card) -> str:
     if not exact:
         raise RuntimeError(f"{name} at banded500k: y differs from the plain version")
     ratio = "not measured" if us is None else f"{us / us_before:.4f}"
-    return (f"[{name} residency] y equal to the plain version; x {a5.n * 4 / 1e6:.1f} MB, share "
-            f"held in L2 {csr5_kernel.last_x_resident_share:.4f}, resident_launches "
+    pipeline = "" if a5.col_packed is not None else (
+        f"rows loaded a group ahead {csr5_kernel.last_grouped_share:.4f} (sigma {a5.sigma}), "
+        f"shared memory {csr5_kernel.last_smem_bytes} B a block; ")
+    return (f"[{name} residency] y equal to the plain version; {pipeline}"
+            f"x {a5.n * 4 / 1e6:.1f} MB, share held in L2 "
+            f"{csr5_kernel.last_x_resident_share:.4f}, resident_launches "
             f"{csr5_kernel.resident_launches}, L2 attributes (bytes, persisting max) "
             f"{csr5_kernel._l2_attributes.get(x.device.index)}, set-aside granted "
             f"{csr5_kernel._setaside.get(x.device.index)}; device {us} us against "
@@ -1909,6 +1946,8 @@ def large_turns(dev, card, kind, res, a20, band500k):
         "k2_raw": device_us(csr5_kernel.csr5_spmm_cuda, a5r, x8, match="csr5_spmm_tile_kernel"),
     }
     say(residency_line("K1p", a5p, x, dev_us["k1p"], K1P_US_BEFORE, card))
+    say(residency_line("K1 on the raw plane, sigma 16", a5r, x, dev_us["k1_raw"], K1_US_BEFORE,
+                       card))
     A = library_csr(band500k, np.float32, dev)
     lib1 = perf.benchmark(mm, A, x, device=dev, num_run=100)
     lib8 = perf.benchmark(mm, A, x8, device=dev, num_run=100)
@@ -2374,7 +2413,8 @@ def main() -> int:
     # --- 2. kernel vs plain vs scipy on the odd shapes ------------------------
     failed = []
     rng = np.random.default_rng(0)
-    for name, a_sp, cfg, win_mode in sweep_cases(synth, CSR5Config):
+    k1_cases = k1_sigma_cases(synth, sp, np, CSR5Config, csr5_kernel.MAX_SIGMA)
+    for name, a_sp, cfg, win_mode in sweep_cases(synth, CSR5Config) + k1_cases:
         a = sp.csr_matrix(a_sp).astype(np.float32)
         x = rng.integers(1, 10, a.shape[1]).astype(np.float32)
         y_ref = torch.from_numpy(a @ x)
@@ -2394,6 +2434,8 @@ def main() -> int:
                 f"[{tag}] {'PASS' if ok else 'FAIL'} m={a.shape[0]} nnz={a.nnz} "
                 f"sigma={a5.sigma} tiles={a5.num_tiles} capw={a5.capw} "
                 f"win={'wrapped' if a5.win_rel else 'aligned'} "
+                + ("K1p " if a5.col_packed is not None
+                   else f"K1 smem={csr5_kernel.last_smem_bytes} B ") +
                 f"max|k-plain|={float((y_k - y_p).abs().max()):.3g} "
                 f"max|k-scipy|={float((y_k - y_ref).abs().max()):.3g}"
             )

@@ -148,7 +148,7 @@ def test_counters_rise_per_launch(monkeypatch, packed):
     monkeypatch.setattr(csr5_kernel, "last_x_resident_share", 0.0)
     shares = [1.0, 0.25, 0.0, 0.5]
     for i, share in enumerate(shares, 1):
-        csr5_kernel._launched(packed, share)
+        csr5_kernel._launched(packed, share, 24)
         assert csr5_kernel.last_x_resident_share == share
         assert (csr5_kernel.packed_launches if packed else csr5_kernel.launches) == i
         assert (csr5_kernel.launches if packed else csr5_kernel.packed_launches) == 0
