@@ -61,6 +61,8 @@
 // (the prologue and epilogue of each block are covered only by the other
 // CTAs on the SM), TMA in place of cp.async.
 
+#include "csr5_error.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -484,10 +486,6 @@ int bandmm_bf16(const void* dense, const void* c0, const void* x, void* y, int m
     if (!bf16_ops) return (int)cudaErrorInvalidValue;
     return launch<__nv_bfloat16>(dense, c0, x, y, m, n, K, nblk, R, xs_c, xs_r, ys_row,
                                  ys_r, rc, 1, stream);
-}
-
-const char* bandmm_error_string(int code) {
-    return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -25,6 +25,7 @@
 // Every per-element offset is a size_t inside a slice's own planes; row and
 // column indices stay below 2^31 (the wrapper checks).
 
+#include "csr5_error.cuh"
 #include "csr5_tile.cuh"
 
 namespace {
@@ -113,10 +114,6 @@ int csr5_sliced_spmv(const void* table, int nslices, int total_tiles, const void
     csr5_sliced_kernel<<<total_tiles, kLanes, smem, (cudaStream_t)stream>>>(
         (const SliceDesc*)table, nslices, (const float*)x, (float*)y, sigma);
     return (int)cudaGetLastError();
-}
-
-const char* csr5_sliced_error_string(int code) {
-    return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -103,6 +103,7 @@
 // (sigma/2 * 128 uint16) and uses it again at row s + sigma/2: each word is
 // read from HBM once per chunk, and Y is bit-equal to K2's.
 
+#include "csr5_error.cuh"
 #include "csr5_rowends.cuh"
 
 namespace {
@@ -549,10 +550,6 @@ int csr5_spmm_bf16(const void* col, const void* val, const void* win_map,
     return launch<__nv_bfloat16>(col, val, win_map, tile_ptr, pages, pmax, packed, staged, x,
                                  y, p, sigma, capw, win_rel, nends, m, n, R, xs_c, xs_r,
                                  ys_row, ys_r, rc, vec, stream);
-}
-
-const char* csr5_spmm_error_string(int code) {
-    return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

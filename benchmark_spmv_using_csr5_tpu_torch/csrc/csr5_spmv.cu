@@ -61,6 +61,7 @@
 // Deferred: vectorised or TMA loads, several tiles per block, and fewer L2
 // sectors per gather (reordering the vertices for locality in x).
 
+#include "csr5_error.cuh"
 #include "csr5_tile.cuh"
 
 namespace {
@@ -284,10 +285,6 @@ int csr5_grant_persisting_l2(int dev, long long bytes, long long* granted) {
     }
     *granted = (long long)now;
     return (int)err;
-}
-
-const char* csr5_cuda_error_string(int code) {
-    return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

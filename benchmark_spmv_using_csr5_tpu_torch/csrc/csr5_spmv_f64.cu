@@ -73,6 +73,7 @@
 // the mass of the row's tiles. On integer-valued data every partial sum is
 // an integer below 2^53 and y is exact.
 
+#include "csr5_error.cuh"
 #include "csr5_rowends.cuh"
 
 namespace {
@@ -230,10 +231,6 @@ int csr5_spmv_f64(const void* col, const void* val, const void* win_map,
         (const int32_t*)tile_ptr, (const double*)x, (double*)y, sigma, capw,
         win_rel, nends);
     return (int)cudaGetLastError();
-}
-
-const char* csr5_f64_error_string(int code) {
-    return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -39,6 +39,8 @@
 //     agree bit for bit.
 // Deferred: TMA loads of the plane, several row groups per block.
 
+#include "csr5_error.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -257,10 +259,6 @@ int dia_spmm_bf16(const void* data, const void* offsets, const void* x, void* y,
                   int n, int nd, int m_pad, int interleaved, int R, int vec, void* stream) {
     return launch_spmm<__nv_bfloat16>(data, offsets, x, y, m, n, nd, m_pad, interleaved, R,
                                       vec, stream);
-}
-
-const char* dia_cuda_error_string(int code) {
-    return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

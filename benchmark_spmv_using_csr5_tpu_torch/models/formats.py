@@ -154,6 +154,12 @@ class CSR5Matrix:
     page_cnt: torch.Tensor  # (p,) int32
     win_map: torch.Tensor  # (p, capw) int32
     col_packed: Optional[torch.Tensor] = None  # (p, sigma/2, omega) int32
+    #: the planes as the kernels' wrappers checked them at the first launch
+    #: (``ops/csr5_kernel.py::_plan``): never saved, never carried over by
+    #: ``dataclasses.replace``
+    launch_plan: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False
+    )
 
     win_rel: bool = False
     tail_row_start: int = 0

@@ -41,9 +41,9 @@ import torch
 
 from ..config import DEFAULT_DEVICE, resolve_device
 from ..utils import nativelib
+from ..utils.cuda_build import on_cuda
 from ..utils.hostmem import arena_take
 from .convert import _as_host_csr, _bf16_roundtrip_exact
-from .dia import _on_cuda
 
 LANES = 128
 #: per-block column-window width cap (the JAX package's gate)
@@ -293,7 +293,7 @@ def bandmm_spmm(
     :func:`.dia.dia_spmv`). ``layout="nr"``: X (n, R) in, Y (m, R)
     out; ``layout="rn"``: X^T (R, n) in, Y^T (R, m) out. ``precision``:
     see the module docstring."""
-    if _on_cuda(x, backend):
+    if on_cuda(x, backend):
         from .bandmm_kernel import bandmm_spmm_cuda
 
         return bandmm_spmm_cuda(bb, x, alpha, precision, layout)

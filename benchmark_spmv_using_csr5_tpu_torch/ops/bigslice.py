@@ -33,6 +33,7 @@ import torch
 
 from ..config import AUTO_TUNED_SIGMA, DEFAULT_DEVICE, CSR5Config, compute_sigma, resolve_device
 from ..models.formats import CSR5Matrix, csr5_from_numpy, csr5_to_numpy
+from ..utils.cuda_build import on_cuda
 from ..utils.hostmem import arena_take
 from . import convert
 from .convert import _as_host_csr, build_csr5
@@ -266,9 +267,7 @@ def sliced_spmv(
     slice, for CUDA tensors; :func:`sliced_spmv_torch` for CPU tensors.
     ``backend`` names the path the caller expects (auto|cuda|torch); a
     mismatch raises instead of changing path."""
-    from .dia import _on_cuda
-
-    if _on_cuda(x, backend):
+    if on_cuda(x, backend):
         from .bigslice_kernel import sliced_spmv_cuda
 
         return sliced_spmv_cuda(sl, x, alpha)

@@ -15,46 +15,25 @@ and loading a lane's rows eight at a time, one group ahead.
 ``DF64CSR5``.
 
 The wrapper checks device, dtypes, shapes and contiguity and raises on
-anything the kernel does not take. It never falls back to the plain
-version, :func:`..ops.csr5_spmv.csr5_spmv_torch`, which is dtype-generic
-and is K4's plain version on float64 tensors.
+anything the kernel does not take: a matrix's planes once, at its first
+launch (``csr5_kernel._plan``), x on every call. It never falls back to
+the plain version, :func:`..ops.csr5_spmv.csr5_spmv_torch`, which is
+dtype-generic and is K4's plain version on float64 tensors.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ..models.formats import CSR5Matrix
 from ..utils import cuda_build
-from .csr5_kernel import LANES, SMEM_MAX, STATIC_SMEM, _expect, row_end_bytes
+from .csr5_kernel import LANES, SMEM_MAX, STATIC_SMEM, _expect, _plan, row_end_bytes
 
 #: the largest sigma K4 takes: the bound of the first port, which kept the
 #: whole (sigma + 1) * 128 float64 prefix in shared memory; the row-end
 #: layout (:func:`f64_smem_bytes`) fits sigma 224 up to 28,248 row ends
 #: per tile, that is min(capw, sigma * 128) <= 28,248
 MAX_SIGMA = 224
-
-#: K4 launches so far in this process (the wrapper adds one per launch)
-launches = 0
-
-_bound = None
-
-
-def _lib() -> ctypes.CDLL:
-    """The built K4 library with its C signature declared."""
-    global _bound
-    if _bound is None:
-        lib = cuda_build.load("csr5_spmv_f64")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # col, val, win_map, tile_ptr, x, y, p, sigma, capw, win_rel, stream
-        lib.csr5_spmv_f64.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-        lib.csr5_spmv_f64.restype = i32
-        lib.csr5_f64_error_string.argtypes = [i32]
-        lib.csr5_f64_error_string.restype = ctypes.c_char_p
-        _bound = lib
-    return _bound
 
 
 def f64_smem_bytes(sigma: int, nends: int) -> int:
@@ -81,7 +60,6 @@ def f64_supported(a5: CSR5Matrix) -> bool:
 def csr5_spmv_f64_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     """y = alpha * A @ x in float64 through K4 (CUDA tensors only). alpha
     is folded into x in float64, as ``df64_spmv`` folds it on the host."""
-    global launches
     who = "csr5_spmv_f64_cuda"
     if not x.is_cuda:
         raise ValueError(f"{who} takes CUDA tensors; CPU tensors go through csr5_spmv_torch")
@@ -97,32 +75,12 @@ def csr5_spmv_f64_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tens
             "shared memory)"
         )
     dev = x.device
-    p, sig, capw = a5.num_tiles, a5.sigma, a5.capw
     _expect(x, "x", (torch.float64,), (a5.n,), dev, who)
-    _expect(a5.col_idx_tiles, "col_idx_tiles", (torch.int32,), (p, sig, LANES), dev, who)
-    _expect(a5.val_tiles, "val_tiles", (torch.float64,), (p, sig, LANES), dev, who)
-    _expect(a5.win_map, "win_map", (torch.int32,), (p, capw), dev, who)
-    _expect(a5.tile_ptr, "tile_ptr", (torch.int32,), (p + 1,), dev, who)
-
-    lib = _lib()
+    col, val, win_map, tile_ptr = _plan(a5, dev, who, f64=True)[3]
     xa = x if alpha == 1.0 else x * alpha
     y = torch.zeros(a5.m_pad, dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.csr5_spmv_f64(
-            a5.col_idx_tiles.data_ptr(),
-            a5.val_tiles.data_ptr(),
-            a5.win_map.data_ptr(),
-            a5.tile_ptr.data_ptr(),
-            xa.data_ptr(),
-            y.data_ptr(),
-            p,
-            sig,
-            capw,
-            int(a5.win_rel),
-            cuda_build.stream_handle(dev),
-        )
-    if rc != 0:
-        msg = lib.csr5_f64_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{who}: kernel launch failed: {msg} ({rc})")
-    launches += 1
+    args = (col, val, win_map, tile_ptr, xa.data_ptr(), y.data_ptr(), a5.num_tiles, a5.sigma,
+            a5.capw, int(a5.win_rel))
+    cuda_build.launch(cuda_build.bind("csr5_spmv_f64"), "csr5_spmv_f64", dev, args, who,
+                      "csr5_spmv_f64")
     return y[: a5.m]

@@ -15,7 +15,8 @@ of 4. As ``_csr5_spmv_pallas_jit`` and ``_csr5_spmm_pallas_jit`` do
 (``csr5_kernel.py:816-820``, ``:870-874``), :func:`csr5_spmv_cuda` and
 :func:`csr5_spmm_cuda` stream the packed plane whenever the matrix has
 one (sigma % 16 == 0 and pmax <= 512); the raw plane is then not read.
-Each of the four kernels has its own launch counter.
+Each of the four kernels has its own launch counter
+(``utils/cuda_build.py::launches``).
 
 K1 and K1p place their loads in the cache hierarchy: the planes skip L1
 and leave L2 first, and x's gathers hold a share of x's lines in L2 with
@@ -39,7 +40,9 @@ window fits :data:`SPMM_SMEM_BUDGET`), ``"gathered"`` reads each
 nonzero's X row from global memory.
 
 The wrappers check device, dtypes, shapes and contiguity and raise on
-anything the kernels do not take. They never fall back to the plain
+anything the kernels do not take: a matrix's planes once, at its first
+launch (:func:`_plan`), x on every call. They launch through
+``utils/cuda_build.py::launch`` and never fall back to the plain
 versions (:func:`..ops.csr5_spmv.csr5_spmv_torch`,
 :func:`..ops.csr5_spmv.csr5_spmm_torch`).
 """
@@ -63,23 +66,6 @@ MAX_SIGMA = 448
 #: ``sigma - sigma % K1_UNROLL`` rows are loaded a whole group ahead
 K1_UNROLL = 8
 
-#: K1 launches so far in this process (the wrapper adds one per launch)
-launches = 0
-#: K1p launches so far in this process
-packed_launches = 0
-#: K2 launches so far in this process
-spmm_launches = 0
-#: K2p launches so far in this process
-spmm_packed_launches = 0
-#: K1 and K1p launches that gathered a share of x above 0 with evict-last
-resident_launches = 0
-#: the share of x's lines the last K1 or K1p launch gathered with evict-last
-last_x_resident_share = 0.0
-#: the share of a lane's rows the last K1 launch loaded in whole groups
-#: ahead (:func:`k1_grouped_share`)
-last_grouped_share = 0.0
-#: the dynamic shared memory a block of the last K1 launch took (bytes)
-last_smem_bytes = 0
 #: the largest page list the packed codes can address (9 bits)
 MAX_PACKED_PAGES = 512
 
@@ -95,57 +81,10 @@ SMEM_MAX = 232_448
 STATIC_SMEM = 64
 _INT32_MAX = 2**31 - 1
 
-_bound = None
-_bound_spmm = None
 #: device index -> (L2 bytes, the most a persisting set-aside may take)
 _l2_attributes: dict = {}
 #: device index -> the persisting set-aside granted (bytes)
 _setaside: dict = {}
-
-
-def _lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    global _bound
-    if _bound is None:
-        lib = cuda_build.load("csr5_spmv")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        f32, i64p = ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
-        for fn in (lib.csr5_spmv_f32, lib.csr5_spmv_bf16):
-            # col, val, win_map, tile_ptr, x, y, p, sigma, capw, win_rel,
-            # share, stream
-            fn.argtypes = [ptr] * 6 + [i32] * 4 + [f32, ptr]
-            fn.restype = i32
-        for fn in (lib.csr5_spmv_packed_f32, lib.csr5_spmv_packed_bf16):
-            # colp, val, win_map, tile_ptr, pages, x, y, p, sigma, capw,
-            # win_rel, pmax, share, stream
-            fn.argtypes = [ptr] * 7 + [i32] * 5 + [f32, ptr]
-            fn.restype = i32
-        lib.csr5_l2_attributes.argtypes = [i32, i64p]
-        lib.csr5_l2_attributes.restype = i32
-        lib.csr5_grant_persisting_l2.argtypes = [i32, ctypes.c_longlong, i64p]
-        lib.csr5_grant_persisting_l2.restype = i32
-        lib.csr5_cuda_error_string.argtypes = [i32]
-        lib.csr5_cuda_error_string.restype = ctypes.c_char_p
-        _bound = lib
-    return _bound
-
-
-def _lib_spmm() -> ctypes.CDLL:
-    """The built K2 library with its C signatures declared."""
-    global _bound_spmm
-    if _bound_spmm is None:
-        lib = cuda_build.load("csr5_spmm")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.csr5_spmm_f32, lib.csr5_spmm_bf16):
-            # col, val, win_map, tile_ptr, pages, pmax, packed, staged, x, y,
-            # p, sigma, capw, win_rel, nends, m, n, R, xs_c, xs_r, ys_row,
-            # ys_r, rc, vec, stream
-            fn.argtypes = [ptr] * 5 + [i32] * 3 + [ptr] * 2 + [i32] * 8 + [i64] * 4 + [i32] * 2 + [ptr]
-            fn.restype = i32
-        lib.csr5_spmm_error_string.argtypes = [i32]
-        lib.csr5_spmm_error_string.restype = ctypes.c_char_p
-        _bound_spmm = lib
-    return _bound_spmm
 
 
 def _expect(t: torch.Tensor, name: str, dtype, shape, device, who="csr5_spmv_cuda") -> None:
@@ -161,32 +100,51 @@ def _expect(t: torch.Tensor, name: str, dtype, shape, device, who="csr5_spmv_cud
         raise ValueError(f"{who}: {name} is not contiguous")
 
 
-def _expect_planes(a5: CSR5Matrix, device, who: str) -> None:
-    """The planes the kernels read, checked; the column plane is
-    ``col_packed`` with its ``pages`` when the matrix has one, else
-    ``col_idx_tiles``. Raises where an index would pass int32."""
-    p, sig, capw = a5.num_tiles, a5.sigma, a5.capw
-    if p * sig * LANES > _INT32_MAX or a5.m_pad > _INT32_MAX:
+def _plan(a5: CSR5Matrix, device, who: str, f64: bool = False) -> tuple:
+    """``(f64, device, planes, ptrs)``: the planes K1, K1p, K2 and K2p read
+    (with ``f64``, K4's), checked once and kept on the matrix
+    (``CSR5Matrix.launch_plan``) while they are the same tensors at the same
+    addresses. ``ptrs`` are the addresses of the column plane, the value
+    plane, ``win_map``, ``tile_ptr`` and (not for K4) ``pages``, 0 where
+    the kernels never read it. The column plane is ``col_packed`` with its
+    ``pages`` when the matrix has one, else ``col_idx_tiles`` (K4: always);
+    ``pages`` is also checked for a raw matrix with ``pages_contig``, whose
+    K2 launches may stage X through it. Reading the addresses on every call
+    is also how a capture sees the planes its graph must keep
+    (``utils/graphs.py::_Reads``). Raises on a wrong plane and where an
+    index would pass int32."""
+    packed = not f64 and a5.col_packed is not None
+    uses_pages = packed or (not f64 and a5.pages_contig)
+    planes = (a5.col_packed if packed else a5.col_idx_tiles, a5.val_tiles, a5.win_map, a5.tile_ptr)
+    if not f64:
+        planes += (a5.pages if uses_pages else None,)
+    ptrs = tuple(0 if t is None else t.data_ptr() for t in planes)
+    plan = a5.launch_plan
+    if (plan is not None and plan[0] == f64 and plan[1] == device and plan[3] == ptrs
+            and all(a is b for a, b in zip(plan[2], planes))):
+        return plan
+    p, sig = a5.num_tiles, a5.sigma
+    if not f64 and (p * sig * LANES > _INT32_MAX or a5.m_pad > _INT32_MAX):
         raise ValueError(
             f"{who}: p * sigma * 128 = {p * sig * LANES} and m_pad = {a5.m_pad} must stay "
             "below 2**31 (int32 tile positions and rows): slice the matrix "
             "(ops/bigslice.py)"
         )
-    if a5.col_packed is not None:
-        if sig % 16 or a5.pmax > MAX_PACKED_PAGES:
-            raise ValueError(
-                f"{who}: col_packed with sigma={sig}, pmax={a5.pmax}; the packed kernels "
-                f"take sigma % 16 == 0 and pmax <= {MAX_PACKED_PAGES}"
-            )
-        _expect(a5.col_packed, "col_packed", (torch.int32,), (p, sig // 2, LANES), device, who)
+    if packed and (sig % 16 or a5.pmax > MAX_PACKED_PAGES):
+        raise ValueError(
+            f"{who}: col_packed with sigma={sig}, pmax={a5.pmax}; the packed kernels "
+            f"take sigma % 16 == 0 and pmax <= {MAX_PACKED_PAGES}"
+        )
+    _expect(planes[0], "col_packed" if packed else "col_idx_tiles", (torch.int32,),
+            (p, sig // 2 if packed else sig, LANES), device, who)
+    if uses_pages:
         _expect(a5.pages, "pages", (torch.int32,), (p, a5.pmax), device, who)
-    else:
-        _expect(a5.col_idx_tiles, "col_idx_tiles", (torch.int32,), (p, sig, LANES), device, who)
-    _expect(
-        a5.val_tiles, "val_tiles", (torch.float32, torch.bfloat16), (p, sig, LANES), device, who
-    )
-    _expect(a5.win_map, "win_map", (torch.int32,), (p, capw), device, who)
+    values = (torch.float64,) if f64 else (torch.float32, torch.bfloat16)
+    _expect(a5.val_tiles, "val_tiles", values, (p, sig, LANES), device, who)
+    _expect(a5.win_map, "win_map", (torch.int32,), (p, a5.capw), device, who)
     _expect(a5.tile_ptr, "tile_ptr", (torch.int32,), (p + 1,), device, who)
+    a5.launch_plan = plan = (f64, device, planes, ptrs)
+    return plan
 
 
 def resident_share(x_bytes: int, l2_bytes: int, persisting_max: int) -> float:
@@ -244,23 +202,6 @@ def k1_grouped_share(sigma: int) -> float:
     return (sigma - sigma % K1_UNROLL) / sigma
 
 
-def _launched(packed: bool, share: float, sigma: int) -> None:
-    """Counts one K1 or K1p launch and the share of x it held in L2; a K1
-    launch also sets :data:`last_grouped_share` and :data:`last_smem_bytes`
-    from its sigma."""
-    global launches, packed_launches, resident_launches, last_x_resident_share
-    global last_grouped_share, last_smem_bytes
-    if packed:
-        packed_launches += 1
-    else:
-        launches += 1
-        last_grouped_share = k1_grouped_share(sigma)
-        last_smem_bytes = k1_smem_bytes(sigma)
-    if share > 0.0:
-        resident_launches += 1
-    last_x_resident_share = share
-
-
 def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     """y = alpha * A @ x through K1p when the matrix has ``col_packed``,
     else K1 (CUDA tensors only)."""
@@ -286,34 +227,22 @@ def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
         raise ValueError("csr5_spmv_cuda: the matrix has no columns")
     dev = x.device
     _expect(x, "x", (torch.float32,), (a5.n,), dev)
-    _expect_planes(a5, dev, "csr5_spmv_cuda")
+    col, val, win_map, tile_ptr, pages = _plan(a5, dev, "csr5_spmv_cuda")[3]
 
-    lib = _lib()
-    bf16 = a5.val_tiles.dtype == torch.bfloat16
-    packed = a5.col_packed is not None
+    lib = cuda_build.bind("csr5_spmv")
+    dt = "bf16" if a5.val_tiles.dtype == torch.bfloat16 else "f32"
     xa = x if alpha == 1.0 else x * alpha
     share = _residency(lib, dev, a5.n * 4)
     y = torch.zeros(a5.m_pad, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if packed:
-            fn = lib.csr5_spmv_packed_bf16 if bf16 else lib.csr5_spmv_packed_f32
-            rc = fn(
-                a5.col_packed.data_ptr(), a5.val_tiles.data_ptr(), a5.win_map.data_ptr(),
-                a5.tile_ptr.data_ptr(), a5.pages.data_ptr(), xa.data_ptr(), y.data_ptr(),
-                p, sig, capw, int(a5.win_rel), a5.pmax, share, stream,
-            )
-        else:
-            fn = lib.csr5_spmv_bf16 if bf16 else lib.csr5_spmv_f32
-            rc = fn(
-                a5.col_idx_tiles.data_ptr(), a5.val_tiles.data_ptr(), a5.win_map.data_ptr(),
-                a5.tile_ptr.data_ptr(), xa.data_ptr(), y.data_ptr(),
-                p, sig, capw, int(a5.win_rel), share, stream,
-            )
-    if rc != 0:
-        msg = lib.csr5_cuda_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"csr5_spmv_cuda: kernel launch failed: {msg} ({rc})")
-    _launched(packed, share, sig)
+    tiles = (p, sig, capw, int(a5.win_rel))
+    if a5.col_packed is not None:
+        args = (col, val, win_map, tile_ptr, pages, xa.data_ptr(), y.data_ptr(), *tiles,
+                a5.pmax, share)
+        cuda_build.launch(lib, f"csr5_spmv_packed_{dt}", dev, args, "csr5_spmv_cuda",
+                          "csr5_spmv_packed")
+    else:
+        args = (col, val, win_map, tile_ptr, xa.data_ptr(), y.data_ptr(), *tiles, share)
+        cuda_build.launch(lib, f"csr5_spmv_{dt}", dev, args, "csr5_spmv_cuda", "csr5_spmv")
     return y[: a5.m]
 
 
@@ -410,7 +339,6 @@ def csr5_spmm_cuda(
     else K2 (CUDA tensors only). ``layout="nr"``: X (n, R) in, Y (m, R)
     out; ``layout="rn"``: X^T (R, n) in, Y^T (R, m) out (the JAX
     ``csr5_spmm_pallas`` layouts)."""
-    global spmm_launches, spmm_packed_launches
     who = "csr5_spmm_cuda"
     if not x.is_cuda:
         raise ValueError(f"{who} takes CUDA tensors; CPU tensors go through csr5_spmm_torch")
@@ -435,57 +363,24 @@ def csr5_spmm_cuda(
             "shared memory at a chunk of 1)"
         )
     dev = x.device
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(f"{who}: x is on {dev}; launch under torch.cuda.device({dev})")
     _expect(x, "X", (torch.float32,), (R, n) if rn else (n, R), dev, who)
-    _expect_planes(a5, dev, who)
+    col, val, win_map, tile_ptr, pages = _plan(a5, dev, who)[3]
     packed = a5.col_packed is not None
     staged = spmm_mode(a5, R) == "staged"
-    if staged and not packed:
-        _expect(a5.pages, "pages", (torch.int32,), (a5.num_tiles, a5.pmax), dev, who)
 
-    lib = _lib_spmm()
-    fn = lib.csr5_spmm_bf16 if a5.val_tiles.dtype == torch.bfloat16 else lib.csr5_spmm_f32
     xa = x if alpha == 1.0 else x * alpha
     y = torch.zeros((R, m) if rn else (m, R), dtype=torch.float32, device=dev)
     xs_c, xs_r = (1, n) if rn else (R, 1)
     ys_row, ys_r = (1, m) if rn else (R, 1)
     vec = int(not rn and R % 4 == 0 and xa.data_ptr() % 16 == 0)
-    rc = spmm_chunk(a5, R)
     uses_pages = packed or staged
-    rcode = fn(
-        (a5.col_packed if packed else a5.col_idx_tiles).data_ptr(),
-        a5.val_tiles.data_ptr(),
-        a5.win_map.data_ptr(),
-        a5.tile_ptr.data_ptr(),
-        a5.pages.data_ptr() if uses_pages else 0,
-        a5.pmax if uses_pages else 0,
-        int(packed),
-        int(staged),
-        xa.data_ptr(),
-        y.data_ptr(),
-        a5.num_tiles,
-        a5.sigma,
-        a5.capw,
-        int(a5.win_rel),
-        min(a5.capw, a5.sigma * LANES),
-        m,
-        n,
-        R,
-        xs_c,
-        xs_r,
-        ys_row,
-        ys_r,
-        rc,
-        vec,
-        cuda_build.stream_handle(dev),
+    args = (
+        col, val, win_map, tile_ptr, pages if uses_pages else 0, a5.pmax if uses_pages else 0,
+        int(packed), int(staged), xa.data_ptr(), y.data_ptr(), a5.num_tiles, a5.sigma,
+        a5.capw, int(a5.win_rel), min(a5.capw, a5.sigma * LANES), m, n, R, xs_c, xs_r,
+        ys_row, ys_r, spmm_chunk(a5, R), vec,
     )
-    if rcode != 0:
-        msg = lib.csr5_spmm_error_string(rcode).decode(errors="replace")
-        raise RuntimeError(f"{who}: kernel launch failed: {msg} ({rcode})")
-    if a5.num_tiles > 0:
-        if packed:
-            spmm_packed_launches += 1
-        else:
-            spmm_launches += 1
+    dt = "bf16" if a5.val_tiles.dtype == torch.bfloat16 else "f32"
+    counted = ("csr5_spmm_packed" if packed else "csr5_spmm") if a5.num_tiles > 0 else None
+    cuda_build.launch(cuda_build.bind("csr5_spmm"), f"csr5_spmm_{dt}", dev, args, who, counted)
     return y

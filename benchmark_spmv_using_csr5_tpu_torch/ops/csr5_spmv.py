@@ -29,7 +29,7 @@ import dataclasses
 import torch
 
 from ..models.formats import CSR5Matrix, col_tiles_from_packed, col_tiles_of
-from .dia import _on_cuda
+from ..utils.cuda_build import on_cuda
 
 
 def csr5_spmm_torch(
@@ -132,7 +132,7 @@ def csr5_spmv(
     device, ``"cuda"`` requires CUDA tensors and ``"torch"`` CPU tensors;
     a mismatch raises instead of changing path."""
     f64 = _is_f64(a5, x, "csr5_spmv")
-    if _on_cuda(x, backend):
+    if on_cuda(x, backend):
         if f64:
             from .csr5_f64 import csr5_spmv_f64_cuda
 
@@ -156,7 +156,7 @@ def csr5_spmm(
             "is no float64 SpMM (neither the JAX Pallas path nor the reference has one): "
             "run csr5_spmv on each column, or use float32"
         )
-    if _on_cuda(x, backend):
+    if on_cuda(x, backend):
         from .csr5_kernel import csr5_spmm_cuda
 
         return csr5_spmm_cuda(a5, x, alpha, layout)

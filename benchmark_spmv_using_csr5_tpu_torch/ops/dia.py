@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, resolve_device
+from ..utils.cuda_build import on_cuda
+
 LANES = 128
 #: hard cap on stored diagonals (the JAX package's gate; the kernels keep
 #: the offsets in shared memory and take any count up to it)
@@ -260,25 +262,13 @@ def dia_spmm_torch(dia: DIAMatrix, xm: torch.Tensor, alpha=1.0) -> torch.Tensor:
     return acc[:, : dia.m].T.contiguous().to(xm.dtype)
 
 
-def _on_cuda(x: torch.Tensor, backend: str) -> bool:
-    """True when the call goes to the kernel (see :func:`dia_spmv`)."""
-    if backend not in ("auto", "cuda", "torch"):
-        raise ValueError(f"unknown backend {backend!r} (auto|cuda|torch)")
-    if backend == "torch" and x.is_cuda:
-        raise ValueError(
-            "backend='torch' runs the plain version on CPU tensors only; "
-            "CUDA tensors go through the kernel"
-        )
-    return backend == "cuda" or x.is_cuda
-
-
 def dia_spmv(
     dia: DIAMatrix, x: torch.Tensor, alpha=1.0, backend: str = "auto"
 ) -> torch.Tensor:
     """y = alpha * A @ x: K5 for CUDA tensors, the plain version for CPU
     tensors. ``backend`` names the path the caller expects (``"auto"``
     follows the device); a mismatch raises instead of changing path."""
-    if _on_cuda(x, backend):
+    if on_cuda(x, backend):
         from .dia_kernel import dia_spmv_cuda
 
         return dia_spmv_cuda(dia, x, alpha)
@@ -290,7 +280,7 @@ def dia_spmm(
 ) -> torch.Tensor:
     """Y = alpha * A @ X for X (n, R): K6 for CUDA tensors, the plain
     version for CPU tensors (as :func:`dia_spmv`)."""
-    if _on_cuda(xm, backend):
+    if on_cuda(xm, backend):
         from .dia_kernel import dia_spmm_cuda
 
         return dia_spmm_cuda(dia, xm, alpha)

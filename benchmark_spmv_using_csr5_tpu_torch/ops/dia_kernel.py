@@ -11,48 +11,20 @@ back to the plain versions (:func:`.dia.dia_spmv_torch`,
 :func:`.dia.dia_spmm_torch`). They are kept lean because at banded500k
 the host's time per call is of the order of K5's device time: the
 matrix's planes are checked once and the result (the launch plan) is
-kept on the matrix; each call checks only x.
+kept on the matrix; each call checks only x, and launches through
+``utils/cuda_build.py::launch``.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ..utils import cuda_build
 from .dia import LANES, DIAMatrix, _rhs_fit, dia_supported
 
-#: K5 launches so far in this process (the wrapper adds one per launch)
-spmv_launches = 0
-#: K6 launches so far in this process
-spmm_launches = 0
-
-_bound = None
-
-
-def _lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    global _bound
-    if _bound is None:
-        lib = cuda_build.load("dia_spmv")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.dia_spmv_f32, lib.dia_spmv_bf16):
-            # data, offsets, x, y, m, n, nd, m_pad, interleaved, stream
-            fn.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
-            fn.restype = i32
-        for fn in (lib.dia_spmm_f32, lib.dia_spmm_bf16):
-            # data, offsets, x, y, m, n, nd, m_pad, interleaved, R, vec, stream
-            fn.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-            fn.restype = i32
-        lib.dia_cuda_error_string.argtypes = [i32]
-        lib.dia_cuda_error_string.restype = ctypes.c_char_p
-        _bound = lib
-    return _bound
-
 
 def _plan(dia: DIAMatrix, who: str) -> tuple:
-    """``(data, offsets_t, spmv_fn, spmm_fn, device, args)`` for ``dia``:
+    """``(data, offsets_t, spmv_entry, spmm_entry, device, args)`` for ``dia``:
     its planes checked once, kept on the matrix while they are the same
     tensors at the same addresses. ``args`` are the kernels' leading
     arguments (data, offsets, then m, n, nd, m_pad, interleaved)."""
@@ -76,13 +48,12 @@ def _plan(dia: DIAMatrix, who: str) -> tuple:
             f"{who}: the matrix exceeds the kernels' limits (float32/bfloat16 "
             "values, 1 to MAX_DIAGS diagonals, int32 rows)"
         )
-    lib = _lib()
-    bf16 = d.dtype == torch.bfloat16
+    dt = "bf16" if d.dtype == torch.bfloat16 else "f32"
     p = (
         d,
         offs,
-        lib.dia_spmv_bf16 if bf16 else lib.dia_spmv_f32,
-        lib.dia_spmm_bf16 if bf16 else lib.dia_spmm_f32,
+        f"dia_spmv_{dt}",
+        f"dia_spmm_{dt}",
         d.device,
         (d.data_ptr(), offs.data_ptr(), dia.m, dia.n, nd, dia.m_pad, int(dia.interleaved)),
     )
@@ -92,15 +63,13 @@ def _plan(dia: DIAMatrix, who: str) -> tuple:
 
 def _check_x(x: torch.Tensor, dev: torch.device, shape, who: str) -> None:
     """Raise unless ``x`` is a contiguous float32 ``shape`` tensor on
-    ``dev``, the current device."""
+    ``dev``."""
     if x.device == dev and x.dtype == torch.float32 and x.shape == shape and x.is_contiguous():
-        if dev.index == torch.cuda.current_device():
-            return
-        raise ValueError(f"{who}: x is on {dev}; launch under torch.cuda.device({dev})")
+        return
     if x.dtype != torch.float32:
         raise NotImplementedError(
-            f"{who}: x dtype {x.dtype}; only float32 runs here "
-            "(float64 is ROADMAP queue 1 item 7)"
+            f"{who}: x dtype {x.dtype}; only float32 runs here (float64 runs CSR5 SpMV "
+            "on K4: build_csr5(..., value_dtype=torch.float64))"
         )
     if x.device != dev:
         raise ValueError(f"{who}: x is on {x.device}, the DIA planes on {dev}")
@@ -112,46 +81,34 @@ def _cpu_refused(x: torch.Tensor, who: str) -> None:
         raise ValueError(f"{who} takes CUDA tensors; CPU tensors go through the plain version")
 
 
-def _raise_on(rc: int, who: str) -> None:
-    msg = _lib().dia_cuda_error_string(rc).decode(errors="replace")
-    raise RuntimeError(f"{who}: kernel launch failed: {msg} ({rc})")
-
-
 def dia_spmv_cuda(dia: DIAMatrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     """y = alpha * A @ x through K5 (CUDA tensors only)."""
-    global spmv_launches
-    _cpu_refused(x, "dia_spmv_cuda")
-    _, _, fn, _, dev, args = _plan(dia, "dia_spmv_cuda")
-    _check_x(x, dev, (dia.n,), "dia_spmv_cuda")
+    who = "dia_spmv_cuda"
+    _cpu_refused(x, who)
+    _, _, entry, _, dev, args = _plan(dia, who)
+    _check_x(x, dev, (dia.n,), who)
     xa = x if alpha == 1.0 else x * alpha
     y = torch.empty(dia.m, dtype=torch.float32, device=dev)
-    stream = cuda_build.stream_handle(dev)
-    rc = fn(args[0], args[1], xa.data_ptr(), y.data_ptr(), *args[2:], stream)
-    if rc:
-        _raise_on(rc, "dia_spmv_cuda")
-    spmv_launches += 1
+    args = (args[0], args[1], xa.data_ptr(), y.data_ptr(), *args[2:])
+    cuda_build.launch(cuda_build.bind("dia_spmv"), entry, dev, args, who, "dia_spmv")
     return y
 
 
 def dia_spmm_cuda(dia: DIAMatrix, xm: torch.Tensor, alpha=1.0) -> torch.Tensor:
     """Y = alpha * A @ X for X (n, R) row-major through K6 (CUDA tensors
     only); Y is (m, R), as the JAX package returns it."""
-    global spmm_launches
     who = "dia_spmm_cuda"
     _cpu_refused(xm, who)
     if xm.dim() != 2:
         raise ValueError(f"{who}: X must be (n, R), got shape {tuple(xm.shape)}")
     R = xm.shape[1]
-    _, _, _, fn, dev, args = _plan(dia, who)
+    _, _, _, entry, dev, args = _plan(dia, who)
     _check_x(xm, dev, (dia.n, R), who)
     if not _rhs_fit(dia, R):
         raise ValueError(f"{who}: R={R} exceeds K6's limits (R >= 1, int32 indices)")
     xa = xm if alpha == 1.0 else xm * alpha
     y = torch.empty((dia.m, R), dtype=torch.float32, device=dev)
     vec = int(R % 4 == 0 and xa.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    stream = cuda_build.stream_handle(dev)
-    rc = fn(args[0], args[1], xa.data_ptr(), y.data_ptr(), *args[2:], R, vec, stream)
-    if rc:
-        _raise_on(rc, who)
-    spmm_launches += 1
+    args = (args[0], args[1], xa.data_ptr(), y.data_ptr(), *args[2:], R, vec)
+    cuda_build.launch(cuda_build.bind("dia_spmv"), entry, dev, args, who, "dia_spmm")
     return y

@@ -38,12 +38,12 @@ there:
   program with its graph and memory pool. A solver keeps at most
   :data:`MAX_PROGRAMS` programs, the least recently used dropped first.
 - **Launch counters and the capture record.** During the capture the
-  kernel wrappers run their Python and add to their counters, as they do
-  for an eager launch: the counters count what the wrappers enqueued,
-  eagerly or into a graph. A replay runs no Python, so it adds nothing.
-  What a replay runs on the device is in the program's capture record
-  (:func:`.trace.note_capture`, kept after the program is dropped): the
-  static inputs it copies, the graph's nodes by type (:func:`graph_nodes`,
+  kernel wrappers run their Python and add to their launch counters
+  (``cuda_build.launches``), as they do for an eager launch: the counters
+  count what the wrappers enqueued, eagerly or into a graph. A replay runs
+  no Python, so it adds nothing. What a replay runs on the device is in
+  the program's capture record (:func:`.trace.note_capture`, kept after
+  the program is dropped): the static inputs it copies, the graph's nodes by type (:func:`graph_nodes`,
   read from the captured graph), the outputs it clones, the launches the
   capture enqueued (:func:`launches_between`), and where each call of the
   solver's operator (its SpMV) lies among the graph's device operations
@@ -87,10 +87,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Mapping, NamedTuple, Op
 import torch
 from torch.overrides import TorchFunctionMode
 
-from . import trace
-
-#: counter name -> (module, attribute): the launch counter of each kernel
-Counters = Mapping[str, Tuple[Any, str]]
+from . import cuda_build, trace
 
 #: captured programs each decorated solver keeps, the least recently used
 #: dropped first; each holds a memory pool with every intermediate of its
@@ -105,29 +102,9 @@ _nesting = threading.local()
 _streams: Dict[int, torch.cuda.Stream] = {}
 
 
-def kernel_counters() -> Dict[str, Tuple[Any, str]]:
-    """The launch counters of the port's kernels: name -> (module,
-    attribute), each a plain int the kernel's wrapper adds one to per
-    launch."""
-    from ..ops import bandmm_kernel, bigslice_kernel, csr5_f64, csr5_kernel, dia_kernel
-
-    return {
-        "csr5_spmv": (csr5_kernel, "launches"),
-        "csr5_spmv_packed": (csr5_kernel, "packed_launches"),
-        "csr5_sliced": (bigslice_kernel, "launches"),
-        "csr5_spmv_f64": (csr5_f64, "launches"),
-        "csr5_spmm": (csr5_kernel, "spmm_launches"),
-        "csr5_spmm_packed": (csr5_kernel, "spmm_packed_launches"),
-        "dia_spmv": (dia_kernel, "spmv_launches"),
-        "dia_spmm": (dia_kernel, "spmm_launches"),
-        "bandmm_spmm": (bandmm_kernel, "launches"),
-    }
-
-
-def read_launches(counters: Optional[Counters] = None) -> Dict[str, int]:
-    """Each counter's value, by name (default: :func:`kernel_counters`)."""
-    counters = kernel_counters() if counters is None else counters
-    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+def read_launches() -> Dict[str, int]:
+    """Each kernel's launch counter (``cuda_build.launches``), by name."""
+    return dict(cuda_build.launches)
 
 
 def launches_between(before: Mapping[str, int], after: Mapping[str, int]) -> Dict[str, int]:

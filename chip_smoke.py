@@ -45,9 +45,9 @@ Phases, each of which must pass:
 6. K5 and K1 on the same banded500k matrix and x, in turns with their
    plain versions (the card's own DIA-vs-CSR5 crossover), K6 at R = 8,
    and the device time of each kernel by ``torch.profiler``; K1's y once
-   more bit-equal to the plain version, with the share of x it held in L2,
-   its ``resident_launches``, its share of rows loaded a group ahead, its
-   shared memory a block and its device time over ``K1_US_BEFORE``;
+   more bit-equal to the plain version, with the share of x it holds in L2,
+   its share of rows loaded a group ahead, its shared memory a block and
+   its device time over ``K1_US_BEFORE``;
 7. kernels K2 (CSR5 SpMM) and K7 (band-block SpMM) against their plain
    versions on the card and against scipy, on the odd shapes of phases 2
    and 4: R in {1, 2, 5, 8, 16, 17} (K7 also 32, one pass over the plane,
@@ -441,10 +441,9 @@ def format_path(dev, failed):
     import torch
 
     from benchmark_spmv_using_csr5_tpu_torch.bench import case_runner, cli
-    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel, dia_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.dia import dia_spmm_torch, dia_spmv_torch
-    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, synth
 
     tri = synth.banded(500_000, 3, dtype=np.float32)
     mix = case_runner.hybmix(400_000)
@@ -460,17 +459,13 @@ def format_path(dev, failed):
             ["--synthetic", "banded:500000:27", "--format", "dia", "--spmm", "8"])),
         ("dia_banded2M", "dia", lambda: cli.run(["--synthetic", "banded:2000000:27", "--format", "dia"])),
     ]
-    csr5_kernel.launches = 0
-    dia_kernel.spmv_launches = dia_kernel.spmm_launches = 0
+    keys = ("csr5_spmv", "dia_spmv", "dia_spmm")
+    cuda_build.launches.update(dict.fromkeys(keys, 0))
     results = {}
     for name, want, go in runs:
         results[name] = go()
     torch.cuda.synchronize()
-    launches = {
-        "csr5_spmv": csr5_kernel.launches,
-        "dia_spmv": dia_kernel.spmv_launches,
-        "dia_spmm": dia_kernel.spmm_launches,
-    }
+    launches = {k: cuda_build.launches[k] for k in keys}
     err = {"csr5_spmv": 0.0, "dia_spmv": 0.0, "dia_spmm": 0.0}
     for name, want, _ in runs:
         r = results[name]
@@ -538,30 +533,31 @@ def device_us(fn, *args, match: str, n: int = 50):
 
 def residency_line(name, a5, x, us, us_before, card) -> str:
     """One more launch of K1 or K1p on ``a5`` and ``x``: whether y is bit
-    for bit the plain version's (integer data), the share of x it held in
-    L2 and the launches that held one, K1's share of rows loaded a group
-    ahead and its shared memory a block, and its device time against the
-    time before the loads were placed."""
+    for bit the plain version's (integer data), the share of x it holds in
+    L2, K1's share of rows loaded a group ahead and its shared memory a
+    block, and its device time against the time before the loads were
+    placed."""
     import torch
 
     from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import (
         csr5_spmv_packed_torch, csr5_spmv_torch,
     )
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build
 
     plain = csr5_spmv_packed_torch if a5.col_packed is not None else csr5_spmv_torch
     exact = torch.equal(csr5_kernel.csr5_spmv_cuda(a5, x), plain(a5, x))
     if not exact:
         raise RuntimeError(f"{name} at banded500k: y differs from the plain version")
     ratio = "not measured" if us is None else f"{us / us_before:.4f}"
+    l2 = csr5_kernel._l2(cuda_build.bind("csr5_spmv"), x.device)
     pipeline = "" if a5.col_packed is not None else (
-        f"rows loaded a group ahead {csr5_kernel.last_grouped_share:.4f} (sigma {a5.sigma}), "
-        f"shared memory {csr5_kernel.last_smem_bytes} B a block; ")
+        f"rows loaded a group ahead {csr5_kernel.k1_grouped_share(a5.sigma):.4f} "
+        f"(sigma {a5.sigma}), shared memory {csr5_kernel.k1_smem_bytes(a5.sigma)} B a block; ")
     return (f"[{name} residency] y equal to the plain version; {pipeline}"
             f"x {a5.n * 4 / 1e6:.1f} MB, share held in L2 "
-            f"{csr5_kernel.last_x_resident_share:.4f}, resident_launches "
-            f"{csr5_kernel.resident_launches}, L2 attributes (bytes, persisting max) "
-            f"{csr5_kernel._l2_attributes.get(x.device.index)}, set-aside granted "
+            f"{csr5_kernel.resident_share(a5.n * 4, *l2):.4f}, L2 attributes (bytes, "
+            f"persisting max) {l2}, set-aside granted "
             f"{csr5_kernel._setaside.get(x.device.index)}; device {us} us against "
             f"{us_before} us before: {ratio} [{card}]")
 
@@ -835,10 +831,11 @@ def spmm_path(dev, failed, mix_hyb):
 
     from benchmark_spmv_using_csr5_tpu_torch import hyb_spmm
     from benchmark_spmv_using_csr5_tpu_torch.bench import case_runner, cli, harness
-    from benchmark_spmv_using_csr5_tpu_torch.ops import bandmm_kernel, csr5_kernel, dia_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.bandmm import bandmm_spmm_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmm_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.dia import dia_spmm_torch
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build
 
     mix = case_runner.hybmix(400_000)
     band = ["--synthetic", "banded:500000:27"]
@@ -855,12 +852,11 @@ def spmm_path(dev, failed, mix_hyb):
         np.random.default_rng(0).integers(1, 10, (mix.shape[1], 8)).astype(np.float32)).to(dev)
     y_mix_ref = mix @ x_mix.cpu().numpy()
     keys = ("csr5_spmm", "dia_spmm", "bandmm_spmm")
-    csr5_kernel.spmm_launches = dia_kernel.spmm_launches = bandmm_kernel.launches = 0
+    cuda_build.launches.update(dict.fromkeys(keys, 0))
     results = {name: go() for name, _, go in runs}
     y_hyb = hyb_spmm(mix_hyb, x_mix)
     torch.cuda.synchronize()
-    launches = {"csr5_spmm": csr5_kernel.spmm_launches, "dia_spmm": dia_kernel.spmm_launches,
-                "bandmm_spmm": bandmm_kernel.launches}
+    launches = {k: cuda_build.launches[k] for k in keys}
     err = {k: 0.0 for k in keys}
     for name, want, _ in runs:
         r = results[name]
@@ -1058,9 +1054,8 @@ def f64_path(dev, card, failed):
 
     from benchmark_spmv_using_csr5_tpu_torch import SpMVHandle, build_csr5, csr5_spmv, solvers
     from benchmark_spmv_using_csr5_tpu_torch.bench import cli
-    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64, csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
-    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, synth
 
     f64 = torch.float64
     df64 = synth.f64_banded(500_000, 27)
@@ -1074,7 +1069,8 @@ def f64_path(dev, card, failed):
             cli.parse_args(["--dtype", "float64"]), "df64_banded500k",
             df64.indptr, df64.indices, df64.data, df64.shape)),
     ]
-    csr5_kernel.launches = csr5_f64.launches = 0
+    launched = cuda_build.launches
+    launched["csr5_spmv"] = launched["csr5_spmv_f64"] = 0
     t0 = time.perf_counter()
     results = {name: go() for name, go in runs}
     torch.cuda.synchronize()
@@ -1110,20 +1106,20 @@ def f64_path(dev, card, failed):
     hi = lambda v: csr5_spmv(a64, v)  # noqa: E731
     b = torch.ones(spd.shape[0], dtype=f64, device=dev)
     bn = float(torch.linalg.vector_norm(b))
-    k1_0, k4_0 = csr5_kernel.launches, csr5_f64.launches
+    k1_0 = launched["csr5_spmv"]
     t0 = time.perf_counter()
     x32, _ = solvers.conjugate_gradient(lo, b.float(), iters=300)
     res32 = float(torch.linalg.vector_norm(b - hi(x32.double()))) / bn
     torch.cuda.synchronize()
     cg_s = time.perf_counter() - t0
-    k1_cg = csr5_kernel.launches - k1_0
-    k1_0, k4_0 = csr5_kernel.launches, csr5_f64.launches
+    k1_cg = launched["csr5_spmv"] - k1_0
+    k1_0, k4_0 = launched["csr5_spmv"], launched["csr5_spmv_f64"]
     t0 = time.perf_counter()
     x_ir, res_ir = solvers.iterative_refinement(lo, hi, b, outer_iters=5, inner_iters=50)
     res_ir = float(res_ir) / bn
     torch.cuda.synchronize()
     ir_s = time.perf_counter() - t0
-    k1_ir, k4_ir = csr5_kernel.launches - k1_0, csr5_f64.launches - k4_0
+    k1_ir, k4_ir = launched["csr5_spmv"] - k1_0, launched["csr5_spmv_f64"] - k4_0
     res_ir_scipy = float(np.linalg.norm(1.0 - spd @ x_ir.cpu().numpy())) / bn
     ok = res_ir <= 1e-10 and res_ir * 10 <= res32 and res_ir_scipy <= 1e-10 and x_ir.dtype == f64
     failed += [] if ok else ["iterative refinement"]
@@ -1137,7 +1133,7 @@ def f64_path(dev, card, failed):
     # the kernels line counts launches at a wrapper, eager or captured; a
     # replay adds none (phase 11 holds its capture record against the
     # profiler instead)
-    launches = {"csr5_spmv": csr5_kernel.launches, "csr5_spmv_f64": csr5_f64.launches}
+    launches = {k: launched[k] for k in ("csr5_spmv", "csr5_spmv_f64")}
 
     # the CLI runs: checks, K4 against its plain version on the same x
     err = 0.0
@@ -1752,12 +1748,11 @@ def large_path(dev, failed):
 
     from benchmark_spmv_using_csr5_tpu_torch import SpMVHandle
     from benchmark_spmv_using_csr5_tpu_torch.bench import cli, harness
-    from benchmark_spmv_using_csr5_tpu_torch.ops import bigslice_kernel, csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.bigslice import sliced_spmv_torch
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import (
         csr5_spmm_packed_torch, csr5_spmv_packed_torch, csr5_spmv_torch,
     )
-    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, synth
 
     t0 = time.perf_counter()
     args20 = cli.parse_args(["--synthetic", "banded:20000000:27"])
@@ -1779,8 +1774,7 @@ def large_path(dev, failed):
     ]
     spmv_keys = ("csr5_spmv", "csr5_spmv_packed", "csr5_sliced")
     keys = spmv_keys + ("csr5_spmm", "csr5_spmm_packed")
-    csr5_kernel.launches = csr5_kernel.packed_launches = bigslice_kernel.launches = 0
-    csr5_kernel.spmm_launches = csr5_kernel.spmm_packed_launches = 0
+    cuda_build.launches.update(dict.fromkeys(keys, 0))
     results, secs = {}, {}
     for name, _, go in runs:
         t0 = time.perf_counter()
@@ -1795,15 +1789,11 @@ def large_path(dev, failed):
     h = SpMVHandle(*shape20)
     h.inputCSR(len(v20), rp20, ci20, v20).asCSR5()
     xh = np.random.default_rng(11).integers(1, 10, shape20[1]).astype(np.float32)
-    k3_0 = bigslice_kernel.launches
+    k3_0 = cuda_build.launches["csr5_sliced"]
     yh = h.setX(xh).spmv(-1.75)
     torch.cuda.synchronize()
-    k3_h = bigslice_kernel.launches - k3_0
-    launches = {
-        "csr5_spmv": csr5_kernel.launches, "csr5_spmv_packed": csr5_kernel.packed_launches,
-        "csr5_sliced": bigslice_kernel.launches, "csr5_spmm": csr5_kernel.spmm_launches,
-        "csr5_spmm_packed": csr5_kernel.spmm_packed_launches,
-    }
+    k3_h = cuda_build.launches["csr5_sliced"] - k3_0
+    launches = {k: cuda_build.launches[k] for k in keys}
     import scipy.sparse as sp
 
     a20 = sp.csr_matrix((v20, ci20, rp20), shape=shape20)
@@ -2047,7 +2037,7 @@ def persistence_phase(dev, failed) -> int:
     from benchmark_spmv_using_csr5_tpu_torch import build_csr5, build_dia
     from benchmark_spmv_using_csr5_tpu_torch.models.formats import PLANE_FIELDS
     from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel, dia_kernel
-    from benchmark_spmv_using_csr5_tpu_torch.utils import checkpoint, debug, synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import checkpoint, cuda_build, debug, synth
 
     band = synth.banded(500_000, 27, dtype=np.float32)
     tri = synth.banded(500_000, 3, dtype=np.float32)
@@ -2086,11 +2076,11 @@ def persistence_phase(dev, failed) -> int:
         say(f"[checkpoint DIA tridiagonal 500k] {'PASS' if ok else 'FAIL'}: {back.ndiag} diagonals, "
             f"offsets_t rebuilt, K5 y bit-equal to before")
 
-    csr5_kernel.launches = 0
+    cuda_build.launches["csr5_spmv"] = 0
     cg = _load_example("poisson_cg_torch").main([])
     pr = _load_example("pagerank_torch").main([])
     torch.cuda.synchronize()
-    k1 = csr5_kernel.launches
+    k1 = cuda_build.launches["csr5_spmv"]
     ok = (np.isfinite(cg["rel_residual"]) and cg["rel_residual"] < 1.0
           and abs(pr["mass"] - 1.0) <= 1e-5 and k1 > 0)
     failed += [] if ok else ["examples"]
@@ -2150,10 +2140,10 @@ def conversion_phase(dev, card, failed) -> dict:
     import torch
 
     from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5
-    from benchmark_spmv_using_csr5_tpu_torch.ops import convert, csr5_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops import convert
     from benchmark_spmv_using_csr5_tpu_torch.ops.convert_device import build_csr5_device, plan_statics
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv
-    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, synth
 
     def sync_ms(t0):
         torch.cuda.synchronize(dev)
@@ -2167,7 +2157,8 @@ def conversion_phase(dev, card, failed) -> dict:
         ("scatband300k", lambda: synth.scattered_band(300_000, 16, 6000, dtype=np.float32), None),
         ("banded20M", lambda: synth.banded(20_000_000, 27, dtype=np.float32), None),
     ]
-    csr5_kernel.launches = csr5_kernel.packed_launches = 0
+    keys = ("csr5_spmv", "csr5_spmv_packed")
+    cuda_build.launches.update(dict.fromkeys(keys, 0))
     for name, make, sig in mats:
         a = sp.csr_matrix(make()).astype(np.float32)
         host = (a.indptr, a.indices, a.data, a.shape)
@@ -2234,7 +2225,7 @@ def conversion_phase(dev, card, failed) -> dict:
         del a5h
         torch.cuda.empty_cache()
     torch.cuda.synchronize(dev)
-    launches = {"csr5_spmv": csr5_kernel.launches, "csr5_spmv_packed": csr5_kernel.packed_launches}
+    launches = {k: cuda_build.launches[k] for k in keys}
     say(f"device conversion launches: {launches}")
     for k, n in launches.items():
         if n == 0:
@@ -2258,12 +2249,12 @@ def distribution_phase(dev, card, failed) -> dict:
     import torch.distributed as dist
 
     from benchmark_spmv_using_csr5_tpu_torch import build_csr5, build_dia, csr5_spmm, csr5_spmv
-    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel, dia_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.dia import dia_spmm, dia_spmv
     from benchmark_spmv_using_csr5_tpu_torch.parallel import distributed as pd
     from benchmark_spmv_using_csr5_tpu_torch.parallel import distributed_dia as pdd
     from benchmark_spmv_using_csr5_tpu_torch.parallel import launch, scaling
-    from benchmark_spmv_using_csr5_tpu_torch.utils import perf, synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, perf, synth
 
     a = sp.csr_matrix(synth.banded(500_000, 27, dtype=np.float32))
     host = (a.indptr, a.indices, a.data, a.shape)
@@ -2276,8 +2267,8 @@ def distribution_phase(dev, card, failed) -> dict:
     d1 = build_dia(a, device=dev)
     y1, ym1 = csr5_spmv(single, xd).cpu(), csr5_spmm(single, xmd).cpu()
     yd1, ymd1 = dia_spmv(d1, xd).cpu(), dia_spmm(d1, xmd).cpu()
-    csr5_kernel.launches = csr5_kernel.packed_launches = csr5_kernel.spmm_launches = 0
-    dia_kernel.spmv_launches = dia_kernel.spmm_launches = 0
+    keys = ("csr5_spmv", "csr5_spmv_packed", "csr5_spmm", "dia_spmv", "dia_spmm")
+    cuda_build.launches.update(dict.fromkeys(keys, 0))
     out = {}
     with launch.single_rank_group(dev):
         mesh = pd.make_mesh(1, dev)
@@ -2349,13 +2340,11 @@ def distribution_phase(dev, card, failed) -> dict:
         say(scaling.projection_report(proj, pts[0].ms_per_spmv, scaling.NVLINK_GBPS, floor_s))
         if not (np.isfinite(pts[0].ms_per_spmv) and pts[0].efficiency == 1.0):
             failed.append("weak_scaling([1])")
-    launches = {"csr5_spmv": csr5_kernel.launches, "csr5_spmv_packed": csr5_kernel.packed_launches,
-                "csr5_spmm": csr5_kernel.spmm_launches, "dia_spmv": dia_kernel.spmv_launches,
-                "dia_spmm": dia_kernel.spmm_launches}
+    launches = {k: cuda_build.launches[k] for k in keys}
     t0 = time.perf_counter()
     ex = _load_example("distributed_spmv_torch").main([])
     torch.cuda.synchronize(dev)
-    launches["csr5_spmv"] = csr5_kernel.launches
+    launches["csr5_spmv"] = cuda_build.launches["csr5_spmv"]
     ok = (ex["backend"] == "nccl" and ex["all_gather_rel_err"] == 0.0 and ex["halo_rel_err"] == 0.0)
     failed += [] if ok else ["distributed example"]
     say(f"[example distributed_spmv_torch] {'PASS' if ok else 'FAIL'} in "
@@ -2379,9 +2368,7 @@ def main() -> int:
 
     from benchmark_spmv_using_csr5_tpu_torch import CSR5Config, build_csr5
     from benchmark_spmv_using_csr5_tpu_torch.bench import cli
-    from benchmark_spmv_using_csr5_tpu_torch.ops import (
-        bandmm_kernel, bigslice_kernel, csr5_f64, csr5_kernel, dia_kernel,
-    )
+    from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel
     from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
     from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, perf, synth
 
@@ -2399,12 +2386,8 @@ def main() -> int:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}")
     t0 = time.perf_counter()
     cuda_build.build(SOURCES)
-    csr5_kernel._lib()
-    csr5_f64._lib()
-    csr5_kernel._lib_spmm()
-    dia_kernel._lib()
-    bandmm_kernel._lib()
-    bigslice_kernel._lib()
+    for name in SOURCES:
+        cuda_build.bind(name)
     say(
         "build: " + ", ".join(f"{k}.cu {cuda_build.build_seconds[k]:.1f} s" for k in SOURCES)
         + f" with nvcc, in parallel (load {time.perf_counter() - t0:.1f} s)"
@@ -2435,7 +2418,7 @@ def main() -> int:
                 f"sigma={a5.sigma} tiles={a5.num_tiles} capw={a5.capw} "
                 f"win={'wrapped' if a5.win_rel else 'aligned'} "
                 + ("K1p " if a5.col_packed is not None
-                   else f"K1 smem={csr5_kernel.last_smem_bytes} B ") +
+                   else f"K1 smem={csr5_kernel.k1_smem_bytes(a5.sigma)} B ") +
                 f"max|k-plain|={float((y_k - y_p).abs().max()):.3g} "
                 f"max|k-scipy|={float((y_k - y_ref).abs().max()):.3g}"
             )
@@ -2473,13 +2456,13 @@ def main() -> int:
         return 1
 
     # --- 3. the main path through the CLI and the harness ----------------------
-    csr5_kernel.launches = 0
+    cuda_build.launches["csr5_spmv"] = 0
     results = [
         cli.run([os.path.join(ROOT, "example.mtx")]),
         cli.run(["--synthetic", "banded:500000:27"]),
     ]
     torch.cuda.synchronize()
-    launches = csr5_kernel.launches
+    launches = cuda_build.launches["csr5_spmv"]
     for r in results:
         say(r.report())
         good = (

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """K1's grouped tile step on the card: the parent's K1 and variants of
 ``csrc/csr5_spmv.cu`` in turns at kron23 and banded500k, with each
-variant's registers, local memory and blocks per SM; then the SASS of
-K1p, K2, K3 and K4 against the parent's build.
+variant's registers, local memory and blocks per SM; first, the SASS of
+every function of the six kernel libraries against the parent's build.
 
     python3 scripts/k1_pipeline_ab.py --parent _archive_check/parent
 
@@ -23,8 +23,11 @@ Each variant's K1 is timed with CUDA events over back-to-back launches in
 alternating rounds; the persisting L2 lines are reset before each. Lines go
 to standard output and ``chiprun_out/k1_pipeline_ab.jsonl``. Exits 1 when a
 variant's y differs from the shipped kernel's by more than 1e-5 of y's
-largest entry, or when the SASS of K1p, K2, K3 or K4 differs from the
-parent's.
+largest entry, or when the SASS of a function differs from the parent's.
+The SASS comparison alone:
+
+    python3 -c "import sys; sys.path.insert(0, 'scripts'); import k1_pipeline_ab as k; \
+        sys.exit(not k.sass_check('_archive_check/parent'))"
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ NO_GROUPS = [("const int full = sigma - sigma % kUnroll;", "const int full = 0;"
 BOUNDS = "__launch_bounds__(kLanes, kMinBlocks)"
 K1_SMEM = "const size_t smem = (size_t)(sigma + 1) * kLanes * sizeof(float);\n" \
           "    const cudaError_t err = grant_smem<&csr5_spmv_tile_kernel<V>>(smem);"
+#: the kernel libraries, one per ``csrc/<name>.cu``
+LIBS = ("csr5_spmv", "csr5_spmv_f64", "csr5_spmm", "csr5_sliced", "dia_spmv", "bandmm")
 #: the sigma of both matrices (compute_sigma's at banded500k and kron23)
 SIGMA = 24
 #: an SM's shared memory and what the card keeps of it for each block (bytes)
@@ -138,36 +143,44 @@ def build(jobs: dict) -> dict:
     return built
 
 
+def stable(text: str) -> str:
+    """``text`` with the length-prefixed name of each anonymous namespace in
+    its mangled names (nvcc's, after the source file and a hash, which
+    differ between two builds) replaced by ``_anon_``."""
+    out, i = [], 0
+    for m in re.finditer(r"(\d+)(_GLOBAL__N__|_INTERNAL_)", text):
+        if m.start() < i:
+            continue
+        out += [text[i:m.start()], "_anon_"]
+        i = m.end(1) + int(m.group(1))
+    return "".join(out) + text[i:]
+
+
 def functions(so: str) -> dict:
-    """kernel -> its SASS text, a kernel named by its mangled name from its
-    identifier on (the namespace prefix of internal symbols may differ
-    between two builds)."""
+    """kernel -> its SASS text, both with :func:`stable` names."""
     text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", so], capture_output=True,
                           text=True, check=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", text)
-    out = {}
-    for i in range(1, len(parts) - 1, 2):
-        m = re.search(r"csr5_\w*kernel.*$", parts[i])
-        out[m.group(0) if m else parts[i]] = parts[i + 1]
-    return out
+    return {stable(parts[i]): stable(parts[i + 1]) for i in range(1, len(parts) - 1, 2)}
 
 
 def sass_check(parent: str) -> bool:
-    """K1p (in csr5_spmv), K2 (csr5_spmm), K3 (csr5_sliced) and K4
-    (csr5_spmv_f64) against the parent's build, function by function."""
+    """Every function of the six libraries against the parent's build,
+    function by function; a function found in one build only differs."""
+    os.makedirs(WORK, exist_ok=True)
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
     jobs = {}
     for side, root in (("parent", parent), ("change", ROOT)):
-        for lib in ("csr5_spmv", "csr5_spmm", "csr5_sliced", "csr5_spmv_f64"):
+        for lib in LIBS:
             jobs[f"sass_{side}_{lib}"] = (os.path.join(root, CSRC, f"{lib}.cu"),
                                           os.path.join(root, CSRC))
     built = build(jobs)
     same = True
-    for lib in ("csr5_spmv", "csr5_spmm", "csr5_sliced", "csr5_spmv_f64"):
+    for lib in LIBS:
         a = functions(built[f"sass_parent_{lib}"])
         b = functions(built[f"sass_change_{lib}"])
+        same &= bool(a)
         for fn in sorted(set(a) | set(b)):
-            if lib == "csr5_spmv" and "csr5_spmv_tile_kernel" in fn:
-                continue  # K1 itself is what changed
             equal = a.get(fn) == b.get(fn)
             same &= equal
             say(sass=lib, function=fn, equal=equal, parent_lines=len((a.get(fn) or "").splitlines()),
@@ -207,7 +220,7 @@ def main() -> int:
 
     import benchmark_spmv_using_csr5_tpu_torch as port
     from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel
-    from benchmark_spmv_using_csr5_tpu_torch.utils import synth
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, synth
     from csr5_bench import harness
 
     dev = torch.device("cuda", 0)
@@ -248,7 +261,8 @@ def main() -> int:
         if a5.sigma != SIGMA:
             raise RuntimeError(f"{tag}: sigma {a5.sigma}; the variants are padded for {SIGMA}")
         y0 = csr5_kernel.csr5_spmv_cuda(a5, xs[0])  # the shipped K1; grants the set-aside
-        share = csr5_kernel.last_x_resident_share
+        share = csr5_kernel.resident_share(
+            a5.n * 4, *csr5_kernel._l2(cuda_build.bind("csr5_spmv"), dev))
         bf16 = int(a5.val_tiles.dtype == torch.bfloat16)
         scale = float(y0.abs().max()) or 1.0
         agree = True

@@ -25,6 +25,7 @@ from benchmark_spmv_using_csr5_tpu_torch.models.formats import (
     STATIC_FIELDS,
     col_tiles_of,
 )
+from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel
 from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv_torch
 from benchmark_spmv_using_csr5_tpu_torch.ops.dia import dia_spmv_torch
 from benchmark_spmv_using_csr5_tpu_torch.utils import checkpoint, synth
@@ -113,8 +114,12 @@ def test_jax_saved_csr5_loads_in_the_port(tmp_path, vdt):
 def test_port_saved_csr5_loads_in_jax(tmp_path):
     a = sp.csr_matrix(synth.power_law(700, 700, 7.0, dtype=np.float32))
     a5 = build_csr5(a, value_dtype="auto", device="cpu")
+    csr5_kernel._plan(a5, a5.device, "csr5_spmv_cuda")  # as a first launch leaves it
+    assert a5.launch_plan is not None
     p = str(tmp_path / "port.npz")
     checkpoint.save_csr5(p, a5)
+    with np.load(p) as z:
+        assert "launch_plan" not in z.files and "launch_plan" not in str(z["__static__"])
     ja5 = jcheckpoint.load_csr5(p)
     assert ja5.config.sigma == a5.sigma and ja5.shape == a5.shape
     assert str(np.asarray(ja5.val_tiles).dtype) == str(a5.val_tiles.dtype).removeprefix("torch.")

@@ -248,11 +248,11 @@ def test_dispatchers_run_plain_versions_on_cpu():
     dp = P.build_dia(host, device="cpu")
     x = torch.from_numpy(_x(700))
     xm = torch.from_numpy(_x(700, 3))
-    before = (dia_kernel.spmv_launches, dia_kernel.spmm_launches)
+    before = (cuda_build.launches["dia_spmv"], cuda_build.launches["dia_spmm"])
     assert torch.equal(P.dia_spmv(dp, x), pdia.dia_spmv_torch(dp, x))
     assert torch.equal(P.dia_spmv(dp, x, backend="torch"), pdia.dia_spmv_torch(dp, x))
     assert torch.equal(P.dia_spmm(dp, xm), pdia.dia_spmm_torch(dp, xm))
-    assert (dia_kernel.spmv_launches, dia_kernel.spmm_launches) == before
+    assert (cuda_build.launches["dia_spmv"], cuda_build.launches["dia_spmm"]) == before
 
 
 @pytest.mark.parametrize(

@@ -228,12 +228,12 @@ def test_dispatcher_refuses_f64_spmm():
 
 def test_k4_wrapper_refuses_cpu_tensors_and_builds_nothing():
     _, a64 = _a5_pair()
-    before = csr5_f64.launches
+    before = cuda_build.launches["csr5_spmv_f64"]
     with pytest.raises(ValueError, match="CUDA tensors"):
         P.csr5_spmv_f64_cuda(a64, torch.ones(300, dtype=torch.float64))
     with pytest.raises(ValueError, match="CUDA tensors"):
         P.csr5_spmv(a64, torch.ones(300, dtype=torch.float64), backend="cuda")
-    assert csr5_f64.launches == before
+    assert cuda_build.launches["csr5_spmv_f64"] == before
     assert "csr5_spmv_f64" not in cuda_build.loaded()
 
 

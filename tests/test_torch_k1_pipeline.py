@@ -1,8 +1,8 @@
 """K1's grouped tile step, on the CPU: the wrapper's mirror of K1's shared
 memory against the expression of ``csrc/csr5_spmv.cu``'s launch, its rows
 per group against the kernel's constant, the share of a lane's rows loaded
-a group ahead, the largest sigma K1 takes, and the two counters a K1 launch
-sets. The kernel itself runs only on the card (``chip_smoke.py``)."""
+a group ahead, and the largest sigma K1 takes. The kernel itself runs only
+on the card (``chip_smoke.py``)."""
 
 from __future__ import annotations
 
@@ -80,24 +80,3 @@ def test_sliced_build_refuses_past_max_sigma():
     past = build_csr5(host, CSR5Config(sigma=csr5_kernel.MAX_SIGMA + 1), device="cpu")
     assert bigslice._kernel_takes(at)
     assert not bigslice._kernel_takes(past)
-
-
-def test_counters_are_set_per_k1_launch(monkeypatch):
-    for name in ("launches", "packed_launches", "resident_launches", "last_smem_bytes"):
-        monkeypatch.setattr(csr5_kernel, name, 0)
-    monkeypatch.setattr(csr5_kernel, "last_grouped_share", 0.0)
-    # kron23's sigma 24, a remainder, less than a group, a packed plane's 16
-    sigmas = [24, 31, 1, 16]
-    for i, sigma in enumerate(sigmas, 1):
-        csr5_kernel._launched(False, 1.0, sigma)
-        assert csr5_kernel.launches == i
-        assert csr5_kernel.last_grouped_share == csr5_kernel.k1_grouped_share(sigma)
-        assert csr5_kernel.last_smem_bytes == csr5_kernel.k1_smem_bytes(sigma)
-    # sigma 16: 16 rows of 128 prefixes and 128 carries, float32
-    assert csr5_kernel.last_smem_bytes == 17 * 128 * 4
-    # a K1p launch counts, and leaves the K1 counters as the last K1 launch set them
-    before = (csr5_kernel.last_grouped_share, csr5_kernel.last_smem_bytes)
-    csr5_kernel._launched(True, 1.0, 32)
-    assert csr5_kernel.packed_launches == 1 and csr5_kernel.launches == len(sigmas)
-    assert (csr5_kernel.last_grouped_share, csr5_kernel.last_smem_bytes) == before
-    assert csr5_kernel.resident_launches == len(sigmas) + 1

@@ -1,23 +1,17 @@
 """Where K1 and K1p hold x in L2, on the CPU: the residency rule as a pure
 function of x's bytes and the device's two L2 attributes, the persisting
 set-aside the wrapper grants (once per device and size, never inside a
-capture), the launch counters, and the ctypes signatures of
-``csrc/csr5_spmv.cu``'s C interface. The kernels themselves run only on the
-card (``chip_smoke.py``)."""
+capture). The kernels themselves run only on the card
+(``chip_smoke.py``)."""
 
 from __future__ import annotations
 
-import ctypes
 import math
-import os
-import re
-import types
 
 import pytest
 import torch
 
 from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_kernel
-from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build
 
 MB = 1 << 20
 #: an H100 80GB HBM3's L2 bytes and its largest persisting set-aside, as
@@ -139,63 +133,3 @@ def test_failed_attribute_read_raises(clean_l2_state):
     lib.csr5_l2_attributes = lambda dev, out: 1
     with pytest.raises(RuntimeError, match="L2 attributes"):
         csr5_kernel._residency(lib, torch.device("cuda", 0), MB)
-
-
-@pytest.mark.parametrize("packed", [False, True], ids=["k1", "k1p"])
-def test_counters_rise_per_launch(monkeypatch, packed):
-    for name in ("launches", "packed_launches", "resident_launches"):
-        monkeypatch.setattr(csr5_kernel, name, 0)
-    monkeypatch.setattr(csr5_kernel, "last_x_resident_share", 0.0)
-    shares = [1.0, 0.25, 0.0, 0.5]
-    for i, share in enumerate(shares, 1):
-        csr5_kernel._launched(packed, share, 24)
-        assert csr5_kernel.last_x_resident_share == share
-        assert (csr5_kernel.packed_launches if packed else csr5_kernel.launches) == i
-        assert (csr5_kernel.launches if packed else csr5_kernel.packed_launches) == 0
-    assert csr5_kernel.resident_launches == 3
-
-
-_C_TYPES = {
-    "const void*": ctypes.c_void_p,
-    "void*": ctypes.c_void_p,
-    "int": ctypes.c_int,
-    "float": ctypes.c_float,
-    "long long": ctypes.c_longlong,
-    "long long*": ctypes.POINTER(ctypes.c_longlong),
-}
-
-
-def _c_signatures() -> dict:
-    """name -> parameter types of every function of the C interface of
-    ``csrc/csr5_spmv.cu`` that returns an int."""
-    with open(os.path.join(cuda_build.CSRC_DIR, "csr5_spmv.cu")) as f:
-        src = f.read()
-    src = src[src.index('extern "C" {'):]
-    sigs = {}
-    for name, params in re.findall(r"^int (\w+)\(([^)]*)\)", src, flags=re.M):
-        types_ = []
-        for p in params.split(","):
-            p = " ".join(p.split())
-            types_.append(_C_TYPES[re.sub(r"\s*\w+$", "", p).replace(" *", "*")])
-        sigs[name] = types_
-    return sigs
-
-
-def test_ctypes_signatures_match_the_c_interface(monkeypatch):
-    names = ("csr5_spmv_f32", "csr5_spmv_bf16", "csr5_spmv_packed_f32", "csr5_spmv_packed_bf16",
-             "csr5_l2_attributes", "csr5_grant_persisting_l2", "csr5_cuda_error_string")
-    fake = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in names})
-    monkeypatch.setattr(cuda_build, "load", lambda name: fake)
-    monkeypatch.setattr(csr5_kernel, "_bound", None)
-    assert csr5_kernel._lib() is fake
-    sigs = _c_signatures()
-    assert set(sigs) == set(names) - {"csr5_cuda_error_string"}
-    for name, want in sigs.items():
-        fn = getattr(fake, name)
-        assert fn.restype is ctypes.c_int, name
-        assert len(fn.argtypes) == len(want), name
-        for got, exp in zip(fn.argtypes, want):
-            assert got is exp or got == exp, (name, got, exp)
-    # the share travels as a C float, just before the stream
-    assert fake.csr5_spmv_f32.argtypes[-2] is ctypes.c_float
-    assert fake.csr5_spmv_packed_bf16.argtypes[-2] is ctypes.c_float

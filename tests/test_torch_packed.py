@@ -211,9 +211,9 @@ def _packed_matrix():
 )
 def test_packed_plane_checks_raise(change, match):
     a5 = _packed_matrix()
-    csr5_kernel._expect_planes(a5, a5.device, "t")  # the matrix as built passes
+    csr5_kernel._plan(a5, a5.device, "t")  # the matrix as built passes
     with pytest.raises(ValueError, match=match):
-        csr5_kernel._expect_planes(dataclasses.replace(a5, **change(a5)), a5.device, "t")
+        csr5_kernel._plan(dataclasses.replace(a5, **change(a5)), a5.device, "t")
 
 
 @pytest.mark.parametrize("call", ["spmv", "spmm"])
@@ -221,13 +221,15 @@ def test_packed_kernels_refuse_cpu_tensors(call):
     """The wrappers raise on CPU tensors before any build, and the CPU
     dispatch runs the plain versions without counting a launch."""
     a5 = _packed_matrix()
-    before = (csr5_kernel.packed_launches, csr5_kernel.spmm_packed_launches)
+    counts = lambda: (cuda_build.launches["csr5_spmv_packed"],  # noqa: E731
+                      cuda_build.launches["csr5_spmm_packed"])
+    before = counts()
     x = torch.ones(a5.n) if call == "spmv" else torch.ones(a5.n, 3)
     with pytest.raises(ValueError, match="CUDA tensors"):
         (csr5_kernel.csr5_spmv_cuda if call == "spmv" else csr5_kernel.csr5_spmm_cuda)(a5, x)
     y = (P.csr5_spmv if call == "spmv" else P.csr5_spmm)(a5, x)
     assert y.shape[0] == a5.m
-    assert (csr5_kernel.packed_launches, csr5_kernel.spmm_packed_launches) == before
+    assert counts() == before
     assert "csr5_spmv" not in cuda_build.loaded() and "csr5_spmm" not in cuda_build.loaded()
 
 

@@ -48,8 +48,7 @@ import benchmark_spmv_using_csr5_tpu.models.solvers as jsolvers
 import benchmark_spmv_using_csr5_tpu_torch as P
 from benchmark_spmv_using_csr5_tpu_torch.bench import harness
 from benchmark_spmv_using_csr5_tpu_torch.models import solvers
-from benchmark_spmv_using_csr5_tpu_torch.ops import csr5_f64, csr5_kernel
-from benchmark_spmv_using_csr5_tpu_torch.utils import graphs, synth, trace
+from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, graphs, synth, trace
 
 
 def _spd(m=120, seed=0):
@@ -256,9 +255,11 @@ def test_gmres_never_waits_on_the_host(monkeypatch):
     assert float(res) < 1e-8
 
 
-def _fake_counters():
-    mods = {k: types.SimpleNamespace(n=v) for k, v in (("k1", 3), ("k4", 0), ("k5", 7))}
-    return mods, {k: (mod, "n") for k, mod in mods.items()}
+def _fake_counters(monkeypatch):
+    """A stand-in launch registry of three counters in place of the port's."""
+    counters = {"k1": 3, "k4": 0, "k5": 7}
+    monkeypatch.setattr(cuda_build, "launches", counters)
+    return counters
 
 
 def _stand_in(replay=lambda: None):
@@ -271,34 +272,34 @@ def test_launch_bookkeeping_of_a_capture_and_its_replays(monkeypatch):
     it enqueues, eagerly or into a graph) and goes into the program's
     capture record, with where its operator's calls lie; a replay runs no
     wrapper, so it adds nothing to the counters."""
-    mods, counters = _fake_counters()
-    before = graphs.read_launches(counters)
+    counters = _fake_counters(monkeypatch)
+    before = graphs.read_launches()
     assert before == {"k1": 3, "k4": 0, "k5": 7}
-    mods["k1"].n += 300  # the wrappers' Python during the capture
-    mods["k4"].n += 6
-    counted = graphs.launches_between(before, graphs.read_launches(counters))
+    counters["k1"] += 300  # the wrappers' Python during the capture
+    counters["k4"] += 6
+    counted = graphs.launches_between(before, graphs.read_launches())
     assert counted == {"k1": 300, "k4": 6}  # k5 did not move
     prog = graphs._program("cg", {"iters": 50}, _stand_in(), {}, torch.zeros(2), {"kernel": 9},
                            counted, {"spmv": [(0, 2), (5, 6)]})
     for _ in range(3):
         prog.replay({})
-    assert graphs.read_launches(counters) == {"k1": 303, "k4": 6, "k5": 7}
+    assert graphs.read_launches() == {"k1": 303, "k4": 6, "k5": 7}
     rec = prog.record
     assert rec.launches == {"k1": 300, "k4": 6} and rec.products == {"spmv": ((0, 2), (5, 6))}
     assert (rec.solver, rec.loops, rec.inputs, rec.outputs) == ("cg", {"iters": 50}, 0, 1)
 
 
 def test_kernel_counters_are_the_harness_counters(monkeypatch):
-    """One table names every kernel's counter: the harness reads it, and
+    """One registry holds every kernel's counter: the harness reads it, and
     a capture's launches, the counters' moves from its start to its end,
     are read from the counters the wrappers add to."""
     assert harness.kernel_launches() == graphs.read_launches()
-    monkeypatch.setattr(csr5_kernel, "launches", 20)
-    monkeypatch.setattr(csr5_f64, "launches", 4)
+    monkeypatch.setitem(cuda_build.launches, "csr5_spmv", 20)
+    monkeypatch.setitem(cuda_build.launches, "csr5_spmv_f64", 4)
     assert harness.kernel_launches()["csr5_spmv"] == 20
     before = graphs.read_launches()
-    csr5_kernel.launches += 5
-    csr5_f64.launches += 2
+    cuda_build.launches["csr5_spmv"] += 5
+    cuda_build.launches["csr5_spmv_f64"] += 2
     assert graphs.launches_between(before, harness.kernel_launches()) == {
         "csr5_spmv": 5, "csr5_spmv_f64": 2}
 
@@ -309,7 +310,7 @@ def test_replay_refills_its_inputs_and_clones_its_outputs(monkeypatch):
     call's result. Its capture record counts the copies and the clones
     each replay adds to the graph's nodes. A stand-in graph doubles the
     static input into the static output."""
-    monkeypatch.setattr(csr5_kernel, "launches", 0)
+    monkeypatch.setitem(cuda_build.launches, "csr5_spmv", 0)
     inp = {"b": torch.zeros(4)}
     out = (torch.zeros(4), torch.zeros(()))
 
@@ -324,7 +325,7 @@ def test_replay_refills_its_inputs_and_clones_its_outputs(monkeypatch):
     y2, s2 = prog.replay({"spmv": None, "b": b2})
     assert torch.equal(y1, 2 * b1) and float(s1) == 6.0
     assert torch.equal(y2, 2 * b2) and float(s2) == 4.0
-    assert y1.data_ptr() != out[0].data_ptr() and csr5_kernel.launches == 0
+    assert y1.data_ptr() != out[0].data_ptr() and cuda_build.launches["csr5_spmv"] == 0
     assert (prog.record.inputs, prog.record.outputs, prog.record.nodes) == (1, 2, {"kernel": 2})
 
 
@@ -483,12 +484,12 @@ def test_replays_are_tallied_apart(monkeypatch):
     """A replay's launches are tallied apart from the wrappers' counters:
     the counters stay where the capture left them, and the capture record
     of the program, times its replays, is what ran."""
-    monkeypatch.setattr(csr5_kernel, "launches", 7)
+    monkeypatch.setitem(cuda_build.launches, "csr5_spmv", 7)
     prog = graphs._program("pagerank", {"iters": 7}, _stand_in(), {}, torch.zeros(1),
                            {"kernel": 40, "memset": 1}, {"csr5_spmv": 7})
     prog.replay({})
     prog.replay({})
-    assert csr5_kernel.launches == 7
+    assert cuda_build.launches["csr5_spmv"] == 7
     assert trace.captures()[prog.record.program].launches == {"csr5_spmv": 7}
 
 

@@ -172,11 +172,11 @@ def test_spmm_oracles_match_jax(edge_matrix):
 def test_dispatcher_runs_plain_version_on_cpu():
     a, _, a5p = _pair(synth.banded(500, 9))
     X = torch.from_numpy(_x(500, 4))
-    before = csr5_kernel.spmm_launches
+    before = cuda_build.launches["csr5_spmm"]
     assert torch.equal(P.csr5_spmm(a5p, X), P.csr5_spmm_torch(a5p, X))
     assert torch.equal(P.csr5_spmm(a5p, X.T.contiguous(), layout="rn", backend="torch"),
                        P.csr5_spmm_torch(a5p, X).T)
-    assert csr5_kernel.spmm_launches == before
+    assert cuda_build.launches["csr5_spmm"] == before
 
 
 @pytest.mark.parametrize("call", ["dispatch", "wrapper"])

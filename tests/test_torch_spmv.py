@@ -140,10 +140,10 @@ def test_dispatcher_runs_plain_version_on_cpu():
     a = sp.csr_matrix(synth.banded(500, 9)).astype(np.float32)
     a5 = P.build_csr5((a.indptr, a.indices, a.data, a.shape), device="cpu")
     x = torch.from_numpy(synth.dense_x(500, dtype=np.float32))
-    before = csr5_kernel.launches
+    before = cuda_build.launches["csr5_spmv"]
     assert torch.equal(P.csr5_spmv(a5, x), P.csr5_spmv_torch(a5, x))
     assert torch.equal(P.csr5_spmv(a5, x, backend="torch"), P.csr5_spmv_torch(a5, x))
-    assert csr5_kernel.launches == before
+    assert cuda_build.launches["csr5_spmv"] == before
 
 
 @pytest.mark.parametrize("call", ["dispatch", "wrapper"])
@@ -171,14 +171,18 @@ def test_dispatcher_rejects_unknown_backend():
 @pytest.mark.parametrize(
     "bad,match",
     [
-        (torch.ones(4, 2, dtype=torch.float64), "has dtype"),
-        (torch.ones(4, 3, dtype=torch.int32), "has shape"),
-        (torch.ones(2, 4, dtype=torch.int32).t(), "not contiguous"),
+        (lambda p, w: torch.ones(p, w, dtype=torch.float64), "win_map has dtype"),
+        (lambda p, w: torch.ones(p, w + 1, dtype=torch.int32), "win_map has shape"),
+        (lambda p, w: torch.ones(w, p, dtype=torch.int32).t(), "win_map is not contiguous"),
     ],
 )
 def test_wrapper_plane_checks_raise(bad, match):
+    """A wrong plane raises when the wrapper makes the matrix's launch plan."""
+    a = sp.csr_matrix(synth.banded(600, 9)).astype(np.float32)
+    a5 = P.build_csr5((a.indptr, a.indices, a.data, a.shape), device="cpu")
+    a5.win_map = bad(a5.num_tiles, a5.capw)
     with pytest.raises(ValueError, match=match):
-        csr5_kernel._expect(bad, "win_map", (torch.int32,), (4, 2), bad.device)
+        csr5_kernel._plan(a5, a5.device, "csr5_spmv_cuda")
 
 
 def test_perf_models_match_jax():
