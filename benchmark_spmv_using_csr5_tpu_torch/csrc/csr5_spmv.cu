@@ -58,8 +58,13 @@
 // device (grant_smem), and only above 48 KB: a launch is then nothing but
 // the launch, as a captured CUDA graph of a solver needs.
 //
-// Deferred: vectorised or TMA loads, several tiles per block, and fewer L2
-// sectors per gather (reordering the vertices for locality in x).
+// Fewer L2 sectors per gather come from the order of x, not from this file:
+// where a matrix's column counts are skewed, the wrapper launches K1 on a
+// column plane relabelled by count and on x' = x[relabel_perm]
+// (ops/csr5_kernel.py::csr5_spmv_cuda), so hot values share sectors; 2.24 ms
+// at kron23 against 2.73 on the original plane (NVIDIA H100 80GB HBM3, 700
+// W). Gathers past the hot prefix of x' taking L1::no_allocate read 2.37 ms:
+// not taken. Deferred: vectorised or TMA loads, several tiles per block.
 
 #include "csr5_error.cuh"
 #include "csr5_tile.cuh"

@@ -154,6 +154,20 @@ class CSR5Matrix:
     page_cnt: torch.Tensor  # (p,) int32
     win_map: torch.Tensor  # (p, capw) int32
     col_packed: Optional[torch.Tensor] = None  # (p, sigma/2, omega) int32
+    #: where a conversion found the column counts skewed
+    #: (``ops/convert.py::relabel_rule``): the column plane with each column
+    #: c renamed newid[c], newid ranking the columns by count, most first
+    #: (p, sigma, omega) int32. K1 gathers from x' = x[relabel_perm] through
+    #: it; every other reader keeps ``col_idx_tiles``. Not saved: a loaded
+    #: matrix is relabelled again; ``dataclasses.replace`` drops it
+    col_relabel_tiles: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False
+    )
+    #: (k,) int32 beside ``col_relabel_tiles``: the old id of each new id, for
+    #: the k columns the plane holds
+    relabel_perm: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False
+    )
     #: the planes as the kernels' wrappers checked them at the first launch
     #: (``ops/csr5_kernel.py::_plan``): never saved, never carried over by
     #: ``dataclasses.replace``

@@ -36,7 +36,7 @@ from ..models.formats import CSR5Matrix, csr5_from_numpy, csr5_to_numpy
 from ..utils.cuda_build import on_cuda
 from ..utils.hostmem import arena_take
 from . import convert
-from .convert import _as_host_csr, build_csr5
+from .convert import _as_host_csr
 from .csr5_kernel import LANES, MAX_SIGMA
 from .csr5_spmv import csr5_spmm, csr5_spmv_torch
 
@@ -207,9 +207,10 @@ def build_csr5_sliced(
             np.subtract(ci, np.int32(c0), out=cs)
             ci = cs
         n_k = max(c1 - c0, 128)
-        a5 = build_csr5(
-            (rp, ci, values[k0:k1], (r1 - r0, n_k)), config, value_dtype=value_dtype,
-            device=device,
+        # no column relabel: K3 reads only the original column plane
+        a5 = convert._convert(
+            (rp, ci, values[k0:k1], (r1 - r0, n_k)), config, sigma=AUTO_TUNED_SIGMA,
+            value_dtype=value_dtype, win_mode="auto", device=device, keep_raw_cols=False,
         )
         if not _kernel_takes(a5):
             return None

@@ -25,7 +25,13 @@ element. What differs is the value dtype and the upload:
 - every plane is copied onto ``device``: the host planes live in the
   reused arena of :mod:`..utils.hostmem`;
 - :func:`build_csr5_autotuned` decides its sigma from the host plan, so
-  a re-tune transposes and uploads once.
+  a re-tune transposes and uploads once;
+- where the column counts are skewed (:func:`relabel_rule`),
+  :func:`build_csr5` and :func:`build_csr5_autotuned` add a second column
+  plane relabelled by column count
+  (:func:`relabel_columns`), the port's own: K1 gathers from x in that
+  order, so the hot part of x fills whole sectors of L1. Every plane above
+  stays as it was.
 
 :func:`tile_partition_pointer` and :func:`tile_dirty_flags` are the JAX
 package's two tensor stages (``convert.py:74-101``), which the on-card
@@ -34,6 +40,7 @@ conversion (:mod:`.convert_device`) runs.
 
 from __future__ import annotations
 
+import math
 import time
 from types import SimpleNamespace
 from typing import Optional, Tuple
@@ -57,8 +64,21 @@ DEVICE_DECODE_MIN_NNZ = 30_000_000
 
 #: phase timings (ms) of the most recent build_csr5 call -- the
 #: malloc/tile_ptr/tile_desc/transpose breakdown the reference prints
-#: (anonymouslib_cuda.h:211-214), plus plan and upload
+#: (anonymouslib_cuda.h:211-214), plus plan, upload and relabel
 last_convert_phases: dict = {}
+
+#: x's bytes at and below which a column relabel cannot pay: one SM's L1
+#: (256 KB on Hopper) holds such an x in any order
+RELABEL_MIN_X_BYTES = 256 * 1024
+#: the columns whose share of the nonzeros :func:`relabel_rule` weighs: the
+#: top 1 %
+RELABEL_TOP_COLUMNS = 0.01
+#: the least share of the nonzeros the top 1 % of columns must hold for the
+#: relabel. On an H100 at scale 23 (8,388,608 columns, 268M nonzeros), K1
+#: plus the x' fill took 0.83 of K1's time on the original plane where the
+#: top 1 % held 57 % (kron23's graph), 0.88 at 8.3 %, and 1.03 at 1.5 %
+#: (uniformly random columns); a stencil's or a band's hold about 1 %
+RELABEL_MIN_TOP_SHARE = 0.05
 
 
 def _pow2_at_least(x: int, lo: int) -> int:
@@ -571,6 +591,89 @@ def _transpose_upload(hp: SimpleNamespace, values, value_dtype, device, ph: _Pha
 
 
 
+def column_counts(a5: CSR5Matrix) -> torch.Tensor:
+    """(n,) int64: the stored nonzeros of each column, by one ``bincount``
+    over the raw column plane on its device (the pad entries of the last
+    tiles, which repeat the last nonzero's column, taken back out)."""
+    plane = a5.col_idx_tiles
+    counts = torch.bincount(plane.view(-1), minlength=a5.n)
+    pads = plane.numel() - a5.nnz_stored
+    if a5.nnz_stored == 0:
+        counts.zero_()
+    elif pads:
+        t, r = divmod(a5.nnz_stored - 1, a5.sigma * a5.omega)
+        lane, s = divmod(r, a5.sigma)
+        counts[plane[t, s, lane].long()] -= pads
+    return counts
+
+
+def relabel_fits(n: int, plane_dtype: torch.dtype, packed: bool) -> bool:
+    """The structural half of :func:`relabel_rule`: raw columns (``packed``
+    False), a float32 or bfloat16 plane (K1's; K4 keeps its float64 path)
+    and x larger than one SM's L1 (:data:`RELABEL_MIN_X_BYTES`). Where it
+    fails, the column counts are never computed."""
+    if packed or plane_dtype not in (torch.float32, torch.bfloat16):
+        return False
+    return n * 4 > RELABEL_MIN_X_BYTES
+
+
+def relabel_rule(counts: torch.Tensor, n: int, plane_dtype: torch.dtype, packed: bool) -> bool:
+    """True when K1 should gather x in an order by column count
+    (``col_relabel_tiles``): :func:`relabel_fits`, and the top
+    :data:`RELABEL_TOP_COLUMNS` of the columns by ``counts`` holding at
+    least :data:`RELABEL_MIN_TOP_SHARE` of the nonzeros. ``counts`` is read
+    only when :func:`relabel_fits` holds."""
+    if not relabel_fits(n, plane_dtype, packed):
+        return False
+    total = int(counts.sum())
+    if total == 0:
+        return False
+    top = torch.topk(counts, max(1, math.ceil(n * RELABEL_TOP_COLUMNS))).values
+    return int(top.sum()) >= RELABEL_MIN_TOP_SHARE * total
+
+
+def _relabel(a5: CSR5Matrix, counts: torch.Tensor) -> None:
+    """Gives ``a5`` the relabelled column plane on the plane's device:
+    newid is the stable descending argsort of ``counts``, the plane is
+    newid[``col_idx_tiles``], and ``relabel_perm`` the old ids of the new
+    ids of the columns with a nonzero count (every column the plane
+    holds)."""
+    plane = a5.col_idx_tiles
+    order = torch.sort(counts, descending=True, stable=True).indices
+    k = int((counts > 0).sum())
+    newid = torch.empty(a5.n, dtype=torch.int32, device=plane.device)
+    newid[order] = torch.arange(a5.n, dtype=torch.int32, device=plane.device)
+    a5.col_relabel_tiles = torch.index_select(newid, 0, plane.view(-1)).view(plane.shape)
+    a5.relabel_perm = order[:k].to(torch.int32)
+
+
+def relabel_columns(a5: CSR5Matrix) -> CSR5Matrix:
+    """``a5``, with ``col_relabel_tiles`` and ``relabel_perm`` set where
+    :func:`relabel_rule` fires on its column counts; the counts are taken
+    only where :func:`relabel_fits` holds, and a matrix without the raw
+    column plane is returned as it is."""
+    if a5.col_idx_tiles is None or not relabel_fits(
+        a5.n, a5.val_tiles.dtype, a5.col_packed is not None
+    ):
+        return a5
+    counts = column_counts(a5)
+    if relabel_rule(counts, a5.n, a5.val_tiles.dtype, a5.col_packed is not None):
+        _relabel(a5, counts)
+    return a5
+
+
+def _relabelled(a5: CSR5Matrix) -> CSR5Matrix:
+    """:func:`relabel_columns`, timed as the ``relabel`` phase of
+    :data:`last_convert_phases` (the rule reads its counts on the host, so
+    only a relabel leaves work on the card to wait for)."""
+    t0 = time.perf_counter()
+    relabel_columns(a5)
+    if a5.col_relabel_tiles is not None and a5.col_relabel_tiles.is_cuda:
+        torch.cuda.synchronize(a5.col_relabel_tiles.device)
+    last_convert_phases["relabel"] = (time.perf_counter() - t0) * 1e3
+    return a5
+
+
 def build_csr5(
     csr,
     config: Optional[CSR5Config] = None,
@@ -591,9 +694,22 @@ def build_csr5(
     128-aligned window maps instead of the wrapped ones. Every plane is
     placed on ``device`` (default: the card). Where ``col_packed`` exists
     on a float32 or bfloat16 plane the raw ``col_idx_tiles`` is None
-    unless ``keep_raw_cols`` (``convert.py:223``, ``:560-566``).
+    unless ``keep_raw_cols`` (``convert.py:223``, ``:560-566``). Where
+    :func:`relabel_rule` fires on the column counts, the matrix also gets
+    the relabelled plane K1 gathers through (:func:`relabel_columns`).
     """
-    device = resolve_device(device, "build_csr5")
+    return _relabelled(_convert(
+        csr, config, sigma=sigma, value_dtype=value_dtype, win_mode=win_mode,
+        device=resolve_device(device, "build_csr5"), keep_raw_cols=keep_raw_cols,
+    ))
+
+
+def _convert(
+    csr, config, *, sigma, value_dtype, win_mode, device, keep_raw_cols
+) -> CSR5Matrix:
+    """:func:`build_csr5` without the column relabel: the planes alone
+    (the row slices of ``ops/bigslice.py``, whose kernel reads only
+    ``col_idx_tiles``, take it so)."""
     row_ptr, col_idx, values, (m, n) = _as_host_csr(csr)
     config = _config_for(m, int(values.shape[0]), config, sigma)
     ph = _Phases()
@@ -632,7 +748,7 @@ def build_csr5_autotuned(
             hp = plan(CSR5Config(
                 omega=config.omega, sigma=target, tiles_per_block=config.tiles_per_block
             ))
-    return _transpose_upload(hp, values, value_dtype, device, ph, False)
+    return _relabelled(_transpose_upload(hp, values, value_dtype, device, ph, False))
 
 
 def csr5_to_csr(a5: CSR5Matrix) -> CSRMatrix:

@@ -16,7 +16,14 @@ of 4. As ``_csr5_spmv_pallas_jit`` and ``_csr5_spmm_pallas_jit`` do
 :func:`csr5_spmm_cuda` stream the packed plane whenever the matrix has
 one (sigma % 16 == 0 and pmax <= 512); the raw plane is then not read.
 Each of the four kernels has its own launch counter
-(``utils/cuda_build.py::launches``).
+(``utils/cuda_build.py::launches``), and K1 one more for its launches on
+the relabelled column plane.
+
+K1 on a matrix whose conversion relabelled its columns by count
+(``col_relabel_tiles``, ``ops/convert.py::relabel_rule``) gathers from
+x' = x[relabel_perm], filled by the wrapper before the launch: the hot
+columns sit together at the front of x', so a sector of L1 holds eight hot
+values instead of one. K2 and K2p keep the original plane.
 
 K1 and K1p place their loads in the cache hierarchy: the planes skip L1
 and leave L2 first, and x's gathers hold a share of x's lines in L2 with
@@ -100,14 +107,15 @@ def _expect(t: torch.Tensor, name: str, dtype, shape, device, who="csr5_spmv_cud
         raise ValueError(f"{who}: {name} is not contiguous")
 
 
-def _plan(a5: CSR5Matrix, device, who: str, f64: bool = False) -> tuple:
+def _plan(a5: CSR5Matrix, device, who: str, f64: bool = False, relabel: bool = False) -> tuple:
     """``(f64, device, planes, ptrs)``: the planes K1, K1p, K2 and K2p read
     (with ``f64``, K4's), checked once and kept on the matrix
     (``CSR5Matrix.launch_plan``) while they are the same tensors at the same
     addresses. ``ptrs`` are the addresses of the column plane, the value
     plane, ``win_map``, ``tile_ptr`` and (not for K4) ``pages``, 0 where
     the kernels never read it. The column plane is ``col_packed`` with its
-    ``pages`` when the matrix has one, else ``col_idx_tiles`` (K4: always);
+    ``pages`` when the matrix has one, else ``col_relabel_tiles`` with
+    ``relabel``, else ``col_idx_tiles`` (K4: always);
     ``pages`` is also checked for a raw matrix with ``pages_contig``, whose
     K2 launches may stage X through it. Reading the addresses on every call
     is also how a capture sees the planes its graph must keep
@@ -115,7 +123,8 @@ def _plan(a5: CSR5Matrix, device, who: str, f64: bool = False) -> tuple:
     index would pass int32."""
     packed = not f64 and a5.col_packed is not None
     uses_pages = packed or (not f64 and a5.pages_contig)
-    planes = (a5.col_packed if packed else a5.col_idx_tiles, a5.val_tiles, a5.win_map, a5.tile_ptr)
+    col = a5.col_packed if packed else a5.col_relabel_tiles if relabel else a5.col_idx_tiles
+    planes = (col, a5.val_tiles, a5.win_map, a5.tile_ptr)
     if not f64:
         planes += (a5.pages if uses_pages else None,)
     ptrs = tuple(0 if t is None else t.data_ptr() for t in planes)
@@ -135,8 +144,15 @@ def _plan(a5: CSR5Matrix, device, who: str, f64: bool = False) -> tuple:
             f"{who}: col_packed with sigma={sig}, pmax={a5.pmax}; the packed kernels "
             f"take sigma % 16 == 0 and pmax <= {MAX_PACKED_PAGES}"
         )
-    _expect(planes[0], "col_packed" if packed else "col_idx_tiles", (torch.int32,),
-            (p, sig // 2 if packed else sig, LANES), device, who)
+    _expect(planes[0], "col_packed" if packed else "col_relabel_tiles" if relabel
+            else "col_idx_tiles", (torch.int32,), (p, sig // 2 if packed else sig, LANES), device,
+            who)
+    if relabel:
+        perm = a5.relabel_perm
+        _expect(perm, "relabel_perm", (torch.int32,), (0 if perm is None else perm.shape[0],),
+                device, who)
+        if perm.shape[0] > a5.n:
+            raise ValueError(f"{who}: relabel_perm holds {perm.shape[0]} ids, n = {a5.n}")
     if uses_pages:
         _expect(a5.pages, "pages", (torch.int32,), (p, a5.pmax), device, who)
     values = (torch.float64,) if f64 else (torch.float32, torch.bfloat16)
@@ -204,7 +220,10 @@ def k1_grouped_share(sigma: int) -> float:
 
 def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
     """y = alpha * A @ x through K1p when the matrix has ``col_packed``,
-    else K1 (CUDA tensors only)."""
+    else K1 (CUDA tensors only). On a matrix with ``col_relabel_tiles``, K1
+    gathers from x' = x[relabel_perm] (one ``index_select``) through that
+    plane: every product is the one on ``col_idx_tiles`` and x, so y is
+    too."""
     if not x.is_cuda:
         raise ValueError(
             "csr5_spmv_cuda takes CUDA tensors; CPU tensors go through "
@@ -227,12 +246,15 @@ def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
         raise ValueError("csr5_spmv_cuda: the matrix has no columns")
     dev = x.device
     _expect(x, "x", (torch.float32,), (a5.n,), dev)
-    col, val, win_map, tile_ptr, pages = _plan(a5, dev, "csr5_spmv_cuda")[3]
+    relabel = a5.col_relabel_tiles is not None
+    col, val, win_map, tile_ptr, pages = _plan(a5, dev, "csr5_spmv_cuda", relabel=relabel)[3]
 
     lib = cuda_build.bind("csr5_spmv")
     dt = "bf16" if a5.val_tiles.dtype == torch.bfloat16 else "f32"
     xa = x if alpha == 1.0 else x * alpha
-    share = _residency(lib, dev, a5.n * 4)
+    if relabel:
+        xa = torch.index_select(xa, 0, a5.relabel_perm)
+    share = _residency(lib, dev, xa.shape[0] * 4)
     y = torch.zeros(a5.m_pad, dtype=torch.float32, device=dev)
     tiles = (p, sig, capw, int(a5.win_rel))
     if a5.col_packed is not None:
@@ -242,7 +264,8 @@ def csr5_spmv_cuda(a5: CSR5Matrix, x: torch.Tensor, alpha=1.0) -> torch.Tensor:
                           "csr5_spmv_packed")
     else:
         args = (col, val, win_map, tile_ptr, xa.data_ptr(), y.data_ptr(), *tiles, share)
-        cuda_build.launch(lib, f"csr5_spmv_{dt}", dev, args, "csr5_spmv_cuda", "csr5_spmv")
+        cuda_build.launch(lib, f"csr5_spmv_{dt}", dev, args, "csr5_spmv_cuda",
+                          "csr5_spmv_relabel" if relabel else "csr5_spmv")
     return y[: a5.m]
 
 

@@ -14,7 +14,8 @@ matrix saved without its raw column plane (``col_packed`` only, the
 default of both packages) loads without it, as the port builds it; a
 float64 plane gets it decoded, since K4 reads raw columns. The port's
 DIA ``offsets_t`` is derived from ``offsets``: it is not saved, and it is
-rebuilt on load.
+rebuilt on load; so is a CSR5 matrix's column plane relabelled by count
+(``ops/convert.py::relabel_columns``), under the rule of the conversion.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from ..config import DEFAULT_DEVICE, CSR5Config, resolve_device
 from ..models.formats import CSR5Matrix, with_k4_columns
+from ..ops.convert import relabel_columns
 from ..ops.dia import DIAMatrix
 
 #: the JAX package's layout version (v3: aligned win_map carries the
@@ -116,9 +118,10 @@ def save_csr5(path: str, a5: CSR5Matrix) -> None:
 
 def load_csr5(path: str, device=DEFAULT_DEVICE) -> CSR5Matrix:
     """A CSR5Matrix saved by :func:`save_csr5` or by the JAX package, on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card), relabelled where the conversion would
+    relabel it."""
     device = resolve_device(device, "load_csr5")
-    return with_k4_columns(_unpack_fields(CSR5Matrix, path, "CSR5Matrix", device))
+    return relabel_columns(with_k4_columns(_unpack_fields(CSR5Matrix, path, "CSR5Matrix", device)))
 
 
 def save_dia(path: str, dia: DIAMatrix) -> None:

@@ -81,10 +81,11 @@ ERROR_STRING = "csr5_cuda_error_string"
 
 #: kernel -> the launches its wrapper enqueued so far in this process,
 #: eagerly or into a captured graph (a replay runs no wrapper, so it adds
-#: nothing); :func:`launch` adds to them
+#: nothing); :func:`launch` adds to them. ``csr5_spmv_relabel`` counts K1's
+#: launches on a relabelled column plane (``csr5_spmv`` the others)
 launches: Dict[str, int] = dict.fromkeys((
     "csr5_spmv", "csr5_spmv_packed", "csr5_sliced", "csr5_spmv_f64", "csr5_spmm",
-    "csr5_spmm_packed", "dia_spmv", "dia_spmm", "bandmm_spmm"), 0)
+    "csr5_spmm_packed", "dia_spmv", "dia_spmm", "bandmm_spmm", "csr5_spmv_relabel"), 0)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

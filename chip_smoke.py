@@ -163,7 +163,19 @@ Phases, each of which must pass:
     single-card counterpart; the rank-local SpMV against single-card K1 in
     turns, ``weak_scaling([1])``, the all-gather floor at D = 1 and the
     NVLink projection; then ``examples/distributed_spmv_torch.py`` at its
-    default size. The launches of phases 18-19 join the kernels line.
+    default size. The launches of phases 18-19 join the kernels line;
+20. the column relabel on the ``kron23`` cell's own graph (its config as
+    the benchmark runs it, scale 23, seed 0, 1/deg values replaced by
+    ones): the rule fires in ``build_csr5`` and its ``relabel`` phase is
+    recorded; K1 on the relabelled plane with x' is ``torch.equal`` to K1
+    on the original plane with x and to the plain version (integer x small
+    enough that every row's sum is exact), each under its own launch
+    counter; then, in turns by CUDA events, µs a launch of K1 both ways,
+    the x' fill, and the whole product both ways, with the gathered ids
+    and the hot share (:func:`hot_share`); last, PageRank as a device
+    program on the relabelled matrix, its capture record counting the
+    relabelled K1 launches, its replay against the eager body. Its
+    launches join the kernels line.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails. The last line of standard output is
@@ -235,6 +247,9 @@ K7_FLOAT_NOTE = {
 #: products per tile), the classical bound of a prefix sum of T terms,
 #: which both K4's lane scan and the plain version's cumsum meet
 K4_ULP = 2.0**-53
+#: the new column ids phase 20 counts as hot: 32,768 float32 are 128 KB of
+#: x', about the L1 an SM running K1 leaves to x
+RELABEL_HOT_IDS = 32_768
 #: a solver's replay against its eager body (``__wrapped__``) on the same
 #: inputs, relative to the largest entry of each output held: the two run
 #: the same kernels, but K1 and K4 add a row's partial sums with float
@@ -1070,7 +1085,7 @@ def f64_path(dev, card, failed):
             df64.indptr, df64.indices, df64.data, df64.shape)),
     ]
     launched = cuda_build.launches
-    launched["csr5_spmv"] = launched["csr5_spmv_f64"] = 0
+    launched["csr5_spmv"] = launched["csr5_spmv_f64"] = launched["csr5_spmv_relabel"] = 0
     t0 = time.perf_counter()
     results = {name: go() for name, go in runs}
     torch.cuda.synchronize()
@@ -1132,8 +1147,9 @@ def f64_path(dev, card, failed):
     torch.cuda.empty_cache()
     # the kernels line counts launches at a wrapper, eager or captured; a
     # replay adds none (phase 11 holds its capture record against the
-    # profiler instead)
-    launches = {k: launched[k] for k in ("csr5_spmv", "csr5_spmv_f64")}
+    # profiler instead); K1's count takes its launches on either column plane
+    launches = {"csr5_spmv": launched["csr5_spmv"] + launched["csr5_spmv_relabel"],
+                "csr5_spmv_f64": launched["csr5_spmv_f64"]}
 
     # the CLI runs: checks, K4 against its plain version on the same x
     err = 0.0
@@ -1207,9 +1223,10 @@ def _device_window(call):
 
 
 #: launch counter -> the name of its kernel in a profiler trace, for the
-#: kernels the solvers run (K1, K1p, K4)
+#: kernels the solvers run (K1 on either column plane, K1p, K4)
 SOLVER_KERNELS = {
     "csr5_spmv": "csr5_spmv_tile_kernel",
+    "csr5_spmv_relabel": "csr5_spmv_tile_kernel",
     "csr5_spmv_packed": "csr5_spmv_packed_kernel",
     "csr5_spmv_f64": "csr5_spmv_f64_tile_kernel",
 }
@@ -1220,7 +1237,9 @@ def solver_programs(dev, card, spd, a32, a64, failed) -> dict:
     iterations), iterative refinement (5 x 50: K1 inner CG, K4 residual),
     BiCGSTAB (50), GMRES(20) x 5, Lanczos (30) and power iteration (100)
     on the phase's SPD matrix through K1 (and K4), PageRank (50) on the
-    example's 100,000-node graph, and CG (300) on the Poisson example's
+    example's 100,000-node graph (its columns relabelled by count: K1's
+    launches count as ``csr5_spmv_relabel``, three device operations a
+    product with the x' fill), and CG (300) on the Poisson example's
     65,536-row Laplacian, where K1 is short. Each runs its eager body
     (``__wrapped__``) three times; then through the decorated solver a
     first call (the eager body, no capture), a second (warm-up, capture,
@@ -1370,7 +1389,7 @@ def solver_programs(dev, card, spd, a32, a64, failed) -> dict:
               and measured == eager_n == record_n and replay_n == {}
               and products is not None and len(products) == sum(eager_n.values())
               and min(products) > 0
-              and eager_n.get("csr5_spmv", 0) > 0
+              and eager_n.get("csr5_spmv", 0) + eager_n.get("csr5_spmv_relabel", 0) > 0
               and (name != "iterative_refinement" or eager_n.get("csr5_spmv_f64", 0) > 0)
               and (refill is None or refill_ok))
         failed += [] if ok else [f"solver {name}"]
@@ -2356,6 +2375,128 @@ def distribution_phase(dev, card, failed) -> dict:
     return launches
 
 
+def hot_share(a5, ids: int = RELABEL_HOT_IDS) -> float:
+    """The share of ``a5``'s nonzeros whose new column id under the
+    relabel by count (``ops/convert.py::relabel_columns``) is below
+    ``ids``: the top ``ids`` of its column counts over their sum."""
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch.ops import convert
+
+    counts = convert.column_counts(a5)
+    total = int(counts.sum())
+    return int(torch.sort(counts, descending=True).values[:ids].sum()) / total if total else 0.0
+
+
+def relabel_phase(dev, card, failed) -> dict:
+    """Phase 20: K1 on the column plane relabelled by count against K1 on
+    the original plane, on ``kron23``'s graph (module docstring); returns
+    its kernel launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from benchmark_spmv_using_csr5_tpu_torch import build_csr5, solvers
+    from benchmark_spmv_using_csr5_tpu_torch.ops import convert, csr5_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.ops.csr5_spmv import csr5_spmv, csr5_spmv_torch
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build, trace
+    from csr5_bench import harness
+
+    start = dict(cuda_build.launches)
+    cfg = harness.load_cell("kron23.pagerank20").config
+    tag = f"[relabel {cfg['name']}]"
+    csr = harness.load_module(harness.ROOT, "generators", "kronecker").generate(cfg, 0, dev)
+    m, n = csr["shape"]
+    row_ptr = csr["row_ptr"].cpu().numpy()
+    host = (row_ptr, csr["col"].cpu().numpy(), np.ones(csr["col"].shape[0], np.float32), (m, n))
+    del csr
+    torch.cuda.empty_cache()
+    a5 = build_csr5(host, value_dtype=torch.float32, device=dev)
+    del host
+    relabel_ms = convert.last_convert_phases.get("relabel")
+    fired = a5.col_relabel_tiles is not None
+    say(f"{tag} n={n} nnz={a5.nnz} sigma={a5.sigma} rule fired: {fired}, "
+        f"relabel phase {relabel_ms} ms")
+    if not fired or relabel_ms is None:
+        failed.append(f"relabel rule did not fire on {cfg['name']}")
+        return {}
+    k = a5.relabel_perm.shape[0]
+    orig = dataclasses.replace(a5)  # the same planes, no relabel: K1 on col_idx_tiles
+    # K1 alone on (relabelled plane, x'): a matrix of k columns and no relabel
+    alone = dataclasses.replace(a5, col_idx_tiles=a5.col_relabel_tiles, shape=(m, k))
+    # integer x with every row's sum below 2^24: each partial sum is exact in
+    # float32 in any order, so all three products must agree bit for bit
+    widest = int(np.diff(row_ptr).max())
+    top = max(1, min(9, (2**24 - 1) // max(widest, 1)))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xs = [torch.randint(1, top + 1, (n,), generator=gen, device=dev).float() for _ in range(2)]
+    before = dict(cuda_build.launches)
+    y_rel = csr5_kernel.csr5_spmv_cuda(a5, xs[0])
+    y_org = csr5_kernel.csr5_spmv_cuda(orig, xs[0])
+    counted = {key: cuda_build.launches[key] - before[key] for key in before
+               if cuda_build.launches[key] != before[key]}
+    y_pln = csr5_spmv_torch(orig, xs[0])
+    torch.cuda.empty_cache()
+    exact = torch.equal(y_rel, y_org) and torch.equal(y_rel, y_pln)
+    ok = exact and counted == {"csr5_spmv_relabel": 1, "csr5_spmv": 1}
+    say(f"{tag} K1 relabelled vs original vs plain (x in 1..{top}, widest row {widest}): "
+        f"{'PASS' if ok else 'FAIL'} torch.equal={exact} "
+        f"max|rel-orig|={float((y_rel - y_org).abs().max())} "
+        f"max|rel-plain|={float((y_rel - y_pln).abs().max())} launches {counted}")
+    if not ok:
+        failed.append("relabelled K1 differs from K1 on the original plane or the plain version")
+    del y_rel, y_org, y_pln
+
+    xrs = [torch.index_select(x, 0, a5.relabel_perm) for x in xs]
+    turns = {
+        "k1_original": (lambda x: csr5_kernel.csr5_spmv_cuda(orig, x), xs),
+        "k1_relabelled": (lambda x: csr5_kernel.csr5_spmv_cuda(alone, x), xrs),
+        "fill": (lambda x: torch.index_select(x, 0, a5.relabel_perm), xs),
+        "product_relabelled": (lambda x: csr5_kernel.csr5_spmv_cuda(a5, x), xs),
+    }
+    us = {t: [] for t in turns}
+    for r in range(4):
+        for t in (list(turns) if r % 2 == 0 else list(turns)[::-1]):
+            fn, args = turns[t]
+            for i in range(3):
+                fn(args[i % 2])
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for i in range(50):
+                fn(args[i % 2])
+            ev1.record()
+            torch.cuda.synchronize()
+            us[t].append(ev0.elapsed_time(ev1) / 50 * 1e3)
+    med = {t: float(np.median(v)) for t, v in us.items()}
+    say(f"{tag} us a launch (CUDA events, median of 4 rounds of 50): "
+        + ", ".join(f"{t} {med[t]:.2f}" for t in turns)
+        + f"; product {med['product_relabelled'] / med['k1_original']:.3f} of K1 on the original "
+        f"plane; gathered ids {k} of {n}, hot share {hot_share(a5):.4f} "
+        f"(new ids below {RELABEL_HOT_IDS}) [{card}]")
+
+    # PageRank as a device program: the capture counts the relabelled launches
+    spmv = lambda v: csr5_spmv(a5, v)  # noqa: E731
+    iters = 5
+    eager = solvers.pagerank.__wrapped__(spmv, n, iters=iters, device=dev)
+    outs = [solvers.pagerank(spmv, n, iters=iters, device=dev) for _ in range(3)]
+    torch.cuda.synchronize()
+    recs = [c for c in trace.captures().values() if c.solver == "pagerank"]
+    rec = recs[-1].launches if recs else {}
+    rel = float((outs[-1] - eager).abs().max() / eager.abs().max())
+    good = rec == {"csr5_spmv_relabel": iters} and rel <= SOLVER_RTOL["float32"]
+    say(f"{tag} pagerank program: capture launches {rec}, replay vs "
+        f"eager max rel {rel:.3g} {'PASS' if good else 'FAIL'}")
+    if not good:
+        failed.append(f"pagerank on the relabelled {cfg['name']}")
+    solvers.pagerank.cache_clear()
+    del a5, orig, alone, xs, xrs, eager, outs
+    torch.cuda.empty_cache()
+    # K1's launches on both planes, for the kernels line
+    return {"csr5_spmv": sum(cuda_build.launches[key] - start[key]
+                             for key in ("csr5_spmv", "csr5_spmv_relabel"))}
+
+
 def main() -> int:
     import torch
 
@@ -2615,8 +2756,13 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: distribution failed: {failed}", file=sys.stderr)
         return 1
-    extra = {k: conv_launches.get(k, 0) + dist_launches.get(k, 0)
-             for k in set(conv_launches) | set(dist_launches)}
+    # --- 20. the column relabel on kron23's graph -----------------------------
+    relabel_launches = relabel_phase(dev, card, failed)
+    if failed:
+        print(f"chip_smoke: column relabel failed: {failed}", file=sys.stderr)
+        return 1
+    extra = {k: conv_launches.get(k, 0) + dist_launches.get(k, 0) + relabel_launches.get(k, 0)
+             for k in set(conv_launches) | set(dist_launches) | set(relabel_launches)}
 
     def entry(name, source, replaces, launches_, err, ms, plain):
         b_ms, b_by, lib_ms = bounds[name]

@@ -5,6 +5,20 @@ variant's registers, local memory and blocks per SM; first, the SASS of
 every function of the six kernel libraries against the parent's build.
 
     python3 scripts/k1_pipeline_ab.py --parent _archive_check/parent
+    python3 scripts/k1_pipeline_ab.py --parent _archive_check/parent --mode relabel
+
+``--mode relabel`` times K1 on the column plane relabelled by count
+(``ops/convert.py::relabel_columns``) against K1 on the original plane,
+on Kronecker graphs of scale 23 from kron23's skew (A = 0.57) down to
+uniform columns (A = B = C = 0.25), each relabelled whether or not the
+rule fires, in turns: the parent's K1 and the shipped K1 on (original
+plane, x), the shipped K1 and the ``hot_l1`` variant (gathers at new ids
+from ``chip_smoke.RELABEL_HOT_IDS`` on skip L1) on (relabelled plane, x'), the x'
+fill alone, and the whole wrapper on each plane; at kron23 also K2 at
+R = 16 on (original plane, X) and on (relabelled plane, X'), and the X'
+fill. Each graph's line gives its top 1 % columns' share of the nonzeros,
+the hot share, the gathered ids and whether the rule fired. ``--graphs``
+names a subset of them.
 
 ``--parent`` is the root of the parent commit's files (``git archive``).
 A variant is the shipped source with edits to a copy of its text (every
@@ -188,10 +202,33 @@ def sass_check(parent: str) -> bool:
     return same
 
 
+#: the relabel mode's variant: gathers at new ids from the hot prefix on
+#: skip L1 (the prefix: chip_smoke.py::RELABEL_HOT_IDS)
+HOT_L1 = [
+    ("constexpr int kMinBlocks = 8;",
+     "constexpr int kMinBlocks = 8;\n"
+     "constexpr int kHotIds = 32768;\n"
+     "__device__ __forceinline__ float gather_past_l1(const float* p, uint64_t pol) {\n"
+     "    float v;\n"
+     "    asm(\"ld.global.nc.L1::no_allocate.L2::cache_hint.f32 %0, [%1], %2;\"\n"
+     "        : \"=f\"(v) : \"l\"(p), \"l\"(pol));\n"
+     "    return v;\n"
+     "}", 1),
+    ("xv[u] = ld.gather(x + c0[u]);",
+     "xv[u] = c0[u] < kHotIds ? ld.gather(x + c0[u]) : gather_past_l1(x + c0[u], ld.held);", 1),
+]
+#: the relabel mode's graphs: name -> (A, B = C) of the Kronecker generator
+SKEWS = {"kron23": (0.57, 0.19), "kron23_a50": (0.50, 0.20), "kron23_a45": (0.45, 0.22),
+         "kron23_a40": (0.40, 0.20), "kron23_uniform": (0.25, 0.25)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, help="root of the parent commit's files")
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--mode", choices=("pipeline", "relabel"), default="pipeline")
+    ap.add_argument("--graphs", nargs="+", choices=list(SKEWS), default=list(SKEWS),
+                    help="the relabel mode's graphs")
     args = ap.parse_args()
     os.makedirs(WORK, exist_ok=True)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
@@ -206,7 +243,11 @@ def main() -> int:
     with open(os.path.join(args.parent, CSRC, "csr5_spmv.cu")) as f:
         parent_src = f.read()
     jobs, pads = {}, {"parent": 0}
-    for name, (text, pads[name]) in {"parent": (parent_src, 0), **variants(src, SIGMA)}.items():
+    if args.mode == "relabel":
+        todo = {"parent": (parent_src, 0), "shipped": (src, 0), "hot_l1": (edit(src, HOT_L1), 0)}
+    else:
+        todo = {"parent": (parent_src, 0), **variants(src, SIGMA)}
+    for name, (text, pads[name]) in todo.items():
         path = os.path.join(WORK, f"{name}.cu")
         with open(path, "w") as f:
             f.write(text + PROBE)
@@ -233,29 +274,35 @@ def main() -> int:
         lib.k1_probe.argtypes = [I, I, ctypes.POINTER(I)]
         libs[name] = lib
 
-    def call(lib, a5, x, share):
+    def call(lib, a5, x, share, col=None):
         y = torch.zeros(a5.m_pad, dtype=torch.float32, device=dev)
         fn = lib.csr5_spmv_bf16 if a5.val_tiles.dtype == torch.bfloat16 else lib.csr5_spmv_f32
-        rc = fn(a5.col_idx_tiles.data_ptr(), a5.val_tiles.data_ptr(), a5.win_map.data_ptr(),
+        col = a5.col_idx_tiles if col is None else col
+        rc = fn(col.data_ptr(), a5.val_tiles.data_ptr(), a5.win_map.data_ptr(),
                 a5.tile_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), a5.num_tiles, a5.sigma,
                 a5.capw, int(a5.win_rel), share, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed ({rc})")
         return y
 
-    def timed(lib, a5, xs, share, n):
+    def events_us(fn, xs, n):
+        """µs a call of ``fn(x)`` over ``n`` back-to-back calls, after the
+        persisting L2 lines are reset and five calls warm."""
         torch.cuda.synchronize()
-        if lib.k1_reset_persisting() != 0:
+        if libs["parent"].k1_reset_persisting() != 0:
             raise RuntimeError("cudaCtxResetPersistingL2Cache failed")
         for i in range(5):
-            call(lib, a5, xs[i % len(xs)], share)
+            fn(xs[i % len(xs)])
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         for i in range(n):
-            call(lib, a5, xs[i % len(xs)], share)
+            fn(xs[i % len(xs)])
         e.record()
         torch.cuda.synchronize()
         return s.elapsed_time(e) / n * 1e3
+
+    def timed(lib, a5, xs, share, n):
+        return events_us(lambda x: call(lib, a5, x, share), xs, n)
 
     def case(tag, a5, xs, n):
         if a5.sigma != SIGMA:
@@ -286,6 +333,11 @@ def main() -> int:
                 median=float(np.median(v)), card=card)
         return agree
 
+    if args.mode == "relabel":
+        ok &= relabel_cases(args, dev, libs, call, events_us, card)
+        say(done=True, ok=bool(ok))
+        return 0 if ok else 1
+
     band = sp.csr_matrix(synth.banded(500_000, 27)).astype(np.float32)
     xb = torch.from_numpy(np.random.default_rng(0).integers(1, 10, band.shape[1])
                           .astype(np.float32)).to(dev)
@@ -306,6 +358,101 @@ def main() -> int:
     ok &= case("kron23_f32", a5, xs, 30)
     say(done=True, ok=bool(ok))
     return 0 if ok else 1
+
+
+def relabel_cases(args, dev, libs, call, events_us, card) -> bool:
+    """The relabel mode's turns on each graph of :data:`SKEWS`; False
+    when a y on the relabelled plane differs from the shipped K1's on the
+    original plane by more than 1e-5 of y's largest entry."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    import benchmark_spmv_using_csr5_tpu_torch as port
+    import chip_smoke
+    from benchmark_spmv_using_csr5_tpu_torch.ops import convert, csr5_kernel
+    from benchmark_spmv_using_csr5_tpu_torch.utils import cuda_build
+    from csr5_bench import harness
+
+    l2 = csr5_kernel._l2(cuda_build.bind("csr5_spmv"), dev)
+    gen = harness.load_module(harness.ROOT, "generators", "kronecker")
+    base = harness.load_cell("kron23.pagerank20").config
+    ok = True
+    for tag in args.graphs:
+        a, b = SKEWS[tag]
+        csr = gen.generate({**base, "A": a, "B": b, "C": b}, 0, dev)
+        m, n = csr["shape"]
+        host = tuple(csr[k].cpu().numpy() for k in ("row_ptr", "col", "val")) + ((m, n),)
+        del csr
+        torch.cuda.empty_cache()
+        a5 = port.build_csr5(host, value_dtype=torch.float32, device=dev)
+        del host
+        fired = a5.col_relabel_tiles is not None
+        counts = convert.column_counts(a5)
+        if not fired:
+            convert._relabel(a5, counts)
+        ranked = torch.sort(counts, descending=True).values
+        top = int(ranked[: math.ceil(n * convert.RELABEL_TOP_COLUMNS)].sum()) / int(counts.sum())
+        k = a5.relabel_perm.shape[0]
+        orig = dataclasses.replace(a5)  # no relabel: K1 on col_idx_tiles
+        g = torch.Generator(device=dev).manual_seed(1)
+        xs = [torch.rand(n, device=dev, generator=g) for _ in range(2)]
+        xrs = [torch.index_select(x, 0, a5.relabel_perm) for x in xs]
+        share_n = csr5_kernel.resident_share(n * 4, *l2)
+        share_k = csr5_kernel.resident_share(k * 4, *l2)
+        y0 = csr5_kernel.csr5_spmv_cuda(orig, xs[0])
+        y1 = csr5_kernel.csr5_spmv_cuda(a5, xs[0])
+        scale = float(y0.abs().max()) or 1.0
+        diffs = {"wrapper": float((y1 - y0).abs().max()) / scale}
+        for name in ("shipped", "hot_l1"):
+            yk = call(libs[name], a5, xrs[0], share_k, a5.col_relabel_tiles)[:m]
+            diffs[name] = float((yk - y0).abs().max()) / scale
+        agree = all(d <= 1e-5 for d in diffs.values())
+        ok &= agree
+        say(case=tag, A=a, B=b, top1pct_share=top, hot_share=chip_smoke.hot_share(a5), gathered=k,
+            n=n, nnz=a5.nnz, rule_fired=fired, share_n=share_n, share_k=share_k,
+            relabel_ms=convert.last_convert_phases.get("relabel"),
+            max_rel_diff_to_original=diffs, card=card)
+        turns = {
+            "parent_original": lambda x: call(libs["parent"], a5, x, share_n),
+            "shipped_original": lambda x: call(libs["shipped"], a5, x, share_n),
+            "shipped_relabel": lambda x: call(libs["shipped"], a5, x, share_k,
+                                              a5.col_relabel_tiles),
+            "hot_l1_relabel": lambda x: call(libs["hot_l1"], a5, x, share_k,
+                                             a5.col_relabel_tiles),
+            "fill": lambda x: torch.index_select(x, 0, a5.relabel_perm),
+            "wrapper_original": lambda x: csr5_kernel.csr5_spmv_cuda(orig, x),
+            "wrapper_relabel": lambda x: csr5_kernel.csr5_spmv_cuda(a5, x),
+        }
+        inputs = {t: xrs if t in ("shipped_relabel", "hot_l1_relabel") else xs for t in turns}
+        if tag == "kron23":
+            # K2 at R = 16 both ways: K2 keeps the original plane (ROADMAP 4.2)
+            alone = dataclasses.replace(a5, col_idx_tiles=a5.col_relabel_tiles, shape=(m, k))
+            Xs = [torch.rand((n, 16), device=dev, generator=g)]
+            Xrs = [torch.index_select(Xs[0], 0, a5.relabel_perm)]
+            y0 = csr5_kernel.csr5_spmm_cuda(orig, Xs[0])
+            diffs = float((csr5_kernel.csr5_spmm_cuda(alone, Xrs[0]) - y0).abs().max())
+            ok &= diffs <= 1e-5 * (float(y0.abs().max()) or 1.0)
+            say(case=tag, k2_max_abs_diff=diffs, spmm_mode=csr5_kernel.spmm_mode(a5, 16))
+            turns.update({
+                "k2_original": lambda X: csr5_kernel.csr5_spmm_cuda(orig, X),
+                "k2_relabel": lambda X: csr5_kernel.csr5_spmm_cuda(alone, X),
+                "k2_fill": lambda X: torch.index_select(X, 0, a5.relabel_perm),
+            })
+            inputs.update(k2_original=Xs, k2_relabel=Xrs, k2_fill=Xs)
+        res = {t: [] for t in turns}
+        names = list(turns)
+        for r in range(args.rounds):
+            for t in (names if r % 2 == 0 else names[::-1]):
+                res[t].append(events_us(turns[t], inputs[t], 30))
+        for t in names:
+            v = sorted(res[t])
+            say(case=tag, turn=t, us=v, median=float(np.median(v)), card=card)
+        del a5, orig, xs, xrs, counts, ranked, y0, y1
+        torch.cuda.empty_cache()
+    return ok
 
 
 if __name__ == "__main__":
