@@ -6,7 +6,8 @@ Everything a cell is made of is found by name under the benchmark's
 root (the checkout): the cell in ``BENCHMARK.json``; its configuration
 in the file that entry names, whose ``generator`` names
 ``csr5_bench/generators/<generator>.py``; its traffic in
-``csr5_bench/traffic/<traffic>.json``; the limits of its comparisons in
+``csr5_bench/traffic/<traffic>.json``, whose ``solver`` (a solve mix)
+names ``csr5_bench/solves/<solver>.py``; the limits of its comparisons in
 ``csr5_bench/limits/<cell>.json``; and each per-layer metric's reader in
 ``csr5_bench/metrics/<metric>.py``. The program is called only through
 its public entries: ``build_csr5``, ``csr5_spmv``, ``csr5_spmm`` and
@@ -54,6 +55,14 @@ def load_module(root: Path, folder: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_solve(root: Path, solver: str):
+    """The solve a ``kind: solve`` traffic names: ``csr5_bench/solves/<solver>.py``,
+    which defines ``planes``, ``inputs``, ``program`` and ``check`` (README)."""
+    if not (Path(root) / PKG / "solves" / f"{solver}.py").is_file():
+        raise SystemExit(f"no solve {solver!r}: {PKG}/solves/{solver}.py is missing")
+    return load_module(root, "solves", solver)
 
 
 @dataclasses.dataclass
@@ -123,8 +132,10 @@ class Trace:
     dispatch_s: Optional[float]  #: host seconds per call to enqueue, or None
     bytes_per_call: float  #: the configuration's byte model for one product
     peak_gbps: float
-    convert_ms: float  #: the host clock around ``build_csr5`` of the real matrix
-    convert_phases: Dict[str, float]  #: the program's phase record of it (ms)
+    convert_ms: float  #: the host clock around ``build_csr5`` of every plane of the real matrix
+    convert_phases: Dict[str, float]  #: the program's phase record of them, summed (ms)
+    #: one product's byte model at each converted plane's value width, by plane
+    plane_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def _union_s(intervals: List[Tuple[str, float, float]]) -> Tuple[float, List[Tuple[float, float]]]:
@@ -202,27 +213,16 @@ def _profiled(loop: Callable[[], int], cuda: bool, sync: Callable[[], None]):
 
 
 class _Solves:
-    """The traffic ``kind: solve``: repeated solves with one ``spmv``
-    closure kept across them, so every solve after the second replays."""
+    """The traffic ``kind: solve``: repeated calls of the solve module's
+    program, whose operators are kept across them, so every solve after
+    the second replays."""
 
     kind = "solve"
 
-    def __init__(self, port, traffic: dict, a5, n: int, b, b_ref, device, rng: random.Random):
-        self.spmv = lambda v: port.csr5_spmv(a5, v)
-        self.iters = int(traffic["iters"])
-        self.solver = traffic["solver"]
-        if self.solver == "cg":
-            self.fn = port.solvers.conjugate_gradient
-            self.call = lambda: self.fn(self.spmv, b, iters=self.iters)[0]
-            self.check_name, self.ord = "x_err", 2
-        elif self.solver == "pagerank":
-            self.fn = port.solvers.pagerank
-            d = float(traffic["damping"])
-            self.call = lambda: self.fn(self.spmv, n, damping=d, iters=self.iters, device=device)
-            self.check_name, self.ord = "r_err", 1
-        else:
-            raise ValueError(f"unknown solver {self.solver!r}")
-        self.traffic, self.b_ref = traffic, b_ref
+    def __init__(self, solve, port, traffic: dict, mats: dict, inputs: dict, n: int, device,
+                 rng: random.Random):
+        self.fn, self.call, self.iters = solve.program(port, traffic, mats, inputs, n, device)
+        self.solve, self.traffic, self.inputs = solve, traffic, inputs
         self.kept = Reservoir(int(traffic["keep"]), rng)
 
     def warm(self, sync) -> None:
@@ -246,15 +246,11 @@ class _Solves:
                 return calls
 
     def close(self) -> None:
-        self.spmv = None
+        self.call = None  # and with it the operators and their matrices
         self.fn.cache_clear()
 
     def check(self, ref: reference.CSR) -> Tuple[str, List[float]]:
-        if self.solver == "cg":
-            want = reference.conjugate_gradient(ref, self.b_ref, self.iters)
-        else:
-            want = reference.pagerank(ref, float(self.traffic["damping"]), self.iters)
-        return self.check_name, [yardstick.relative_error(x, want, self.ord) for x in self.kept.items]
+        return self.solve.check(ref, self.traffic, self.inputs, self.kept.items)
 
 
 class _Products:
@@ -317,15 +313,10 @@ class _Products:
 
 
 def _inputs(traffic: dict, csr: dict, seed: int, device, dtype) -> dict:
-    """The traffic's inputs from the seed: CG's b = A 1 (HPCG), or a pool
-    of x vectors (rhs 1) or X blocks (rhs > 1), uniform in [-1, 1)."""
+    """A product traffic's inputs from the seed: a pool of x vectors (rhs
+    1) or X blocks (rhs > 1), uniform in [-1, 1). A solve's come from its
+    module."""
     m, n = csr["shape"]
-    if traffic["kind"] == "solve":
-        if traffic["solver"] != "cg":
-            return {}
-        a = reference.CSR(csr["row_ptr"], csr["col"], csr["val"], (m, n), device)
-        b = a.matmul(torch.ones(n, dtype=torch.float64, device=device))
-        return {"b": b}
     gen = torch.Generator(device=device).manual_seed((seed + 1) % 2**63)
     rhs = int(traffic["rhs"])
     shape = (n,) if rhs == 1 else (n, rhs)
@@ -358,7 +349,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device="c
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
-    plane = (CONTROL_PLANES if control else PLANES)[cfg["precision"]]
+    solve = load_solve(root, traffic["solver"]) if traffic["kind"] == "solve" else None
+    # the value planes of the one matrix, by name; the vectors take the first's precision
+    planes = (solve.planes(cfg, control) if solve else
+              {"a": (CONTROL_PLANES if control else PLANES)[cfg["precision"]]})
+    plane = next(iter(planes.values()))
     vec = torch.float64 if plane == torch.float64 else torch.float32
     rng = random.Random(seed)
 
@@ -369,37 +364,41 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device="c
     nnz = int(csr["col"].shape[0])
     sync()
     phases["generate_s"] = time.perf_counter() - t_start
-    inputs = _inputs(traffic, csr, seed, dev, vec)
+    inputs = (solve.inputs(cfg, traffic, csr, seed, dev, vec) if solve else
+              _inputs(traffic, csr, seed, dev, vec))
     host = tuple(csr[k].cpu().numpy() for k in ("row_ptr", "col", "val")) + ((m, n),)
     del csr
     if cuda:
         torch.cuda.empty_cache()
 
     phases["to_host_s"] = time.perf_counter() - t_start
-    # 2. a small conversion, untimed, loads the conversion's libraries
+    # 2. a small conversion of each plane type, untimed, loads the conversion's libraries
     k = min(m, WARM_ROWS)
     e = int(host[0][k])
-    port.build_csr5((host[0][: k + 1], host[1][:e], host[2][:e], (k, n)), value_dtype=plane,
-                    device=dev)
+    for dtype in dict.fromkeys(planes.values()):
+        port.build_csr5((host[0][: k + 1], host[1][:e], host[2][:e], (k, n)), value_dtype=dtype,
+                        device=dev)
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
 
-    # 3. the conversion of the configuration's matrix, timed
+    # 3. the conversion of the configuration's matrix to each plane, timed together
+    mats, convert_phases = {}, {}
     t0 = time.perf_counter()
-    a5 = port.build_csr5(host, value_dtype=plane, device=dev)
+    for name, dtype in planes.items():
+        mats[name] = port.build_csr5(host, value_dtype=dtype, device=dev)
+        for key, ms in port.ops.convert.last_convert_phases.items():
+            convert_phases[key] = convert_phases.get(key, 0) + ms
     sync()
     convert_ms = (time.perf_counter() - t0) * 1e3
 
     phases["convert_s"] = time.perf_counter() - t_start
-    convert_phases = dict(port.ops.convert.last_convert_phases)
 
     # 4. the cell's own shapes, warmed
-    if traffic["kind"] == "solve":
-        b = inputs.get("b")
-        runner = _Solves(port, traffic, a5, n, None if b is None else b.to(vec), b, dev, rng)
+    if solve:
+        runner = _Solves(solve, port, traffic, mats, inputs, n, dev, rng)
     else:
-        runner = _Products(port, traffic, a5, inputs["pool"], rng)
+        runner = _Products(port, traffic, mats["a"], inputs["pool"], rng)
     runner.warm(sync)
     setup_s = time.perf_counter() - t_start
 
@@ -425,7 +424,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device="c
 
     # 6. the check, once the program's state is freed
     runner.close()
-    del a5
+    del mats
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -448,10 +447,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device="c
         busy_s, gaps = _union_s(dev_ops)
         model = yardstick.BYTE_MODELS[cfg["byte_model"]]
         value_bytes = 8 if cfg["precision"] == "float64" else 4
+        rhs = int(traffic.get("rhs", 1))
         t = Trace(runner.kind, calls, runner.iters, window_s, busy_s, dev_ops, host_ops, dispatch,
-                  model(m, n, nnz, int(traffic.get("rhs", 1)), value_bytes),
+                  model(m, n, nnz, rhs, value_bytes),
                   yardstick.hbm_gbps(dev_info["kind"]) if cuda else float("nan"),
-                  convert_ms, convert_phases)
+                  convert_ms, convert_phases,
+                  {name: model(m, n, nnz, rhs, dtype.itemsize) for name, dtype in planes.items()})
         for metric in cell.per_layer:
             value = load_module(root, "metrics", metric["name"]).read(t)
             if value is not None:
@@ -471,7 +472,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device="c
         result.update(metrics=metrics, device=dev_info)
     if cuda:
         result["device"].update(_card())
-    result["shape"] = {"rows": m, "cols": n, "nnz": nnz, "plane": str(plane)}
+    result["shape"] = {"rows": m, "cols": n, "nnz": nnz,
+                       "plane": ", ".join(str(dtype) for dtype in planes.values())}
     result["phases"] = phases
     result["checks"] = {check_name: {"value": worst, "limit": limit, "compared": len(errs)}}
     return result

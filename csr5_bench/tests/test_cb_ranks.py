@@ -2,11 +2,8 @@
 gloo ranks on a tiny z-stacked stencil, the program's plain versions. A
 sound run is correct; the control and each planted fault (``rank_faults``)
 are not; a rank that raises, dies or hangs ends the run within its
-deadline; a one-process run of the cell stops at its generator.
-
-No cell of ``BENCHMARK.json`` asks for four chips yet (``PERF.md`` §7), so
-the tests run the prepared cell ``hpcg192x4.spmv`` from a copy of the
-benchmark whose ``BENCHMARK.json`` carries the entries that add it."""
+deadline; a one-process run of the cell stops at its generator. The
+tests run the cell ``hpcg192x4.spmv`` from a copy of the benchmark."""
 
 import json
 import math
@@ -28,32 +25,16 @@ from csr5_bench.tests.conftest import SEED, tiny
 CELL = "hpcg192x4.spmv"
 #: seconds a test run may take before the launcher ends it
 DEADLINE = 120.0
-#: the entries that add the four-chip cell to BENCHMARK.json
-CONFIG = {"name": "hpcg192x4", "source": "https://www.hpcg-benchmark.org (HPCG 3.1; SAND2013-8752)",
-          "file": "csr5_bench/configs/hpcg192x4.json", "reduced": ["nx", "ny", "nz"],
-          "why": "HPCG on four cards"}
-WORKLOAD = {"name": CELL, "config": "hpcg192x4", "traffic": "spmv", "chips": 4,
-            "why": "HPCG's SpMV on 4 ranks"}
-METRICS = ("product_ms", "convert.host_ms", "dispatch.host_us", "spmv_roofline",
-           "device.idle_pct.product")
-NCCL = {"name": "dist.nccl_us", "unit": "us", "better": "lower", "source": "device_trace",
-        "layer": "exchange", "moves": "product_ms", "workloads": [CELL]}
 
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    """A copy of the benchmark with the four-chip cell added."""
+    """A copy of the benchmark alone (``BENCHMARK.json`` and its folder),
+    without the program beside it."""
     root = tmp_path_factory.mktemp("bench")
     shutil.copytree(harness.ROOT / "csr5_bench", root / "csr5_bench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    spec = harness.load_spec()
-    spec["configs"].append(CONFIG)
-    spec["workloads"].append(WORKLOAD)
-    for m in spec["end_to_end"] + spec["per_layer"]:
-        if m["name"] in METRICS:
-            m["workloads"].append(CELL)
-    spec["per_layer"].append(NCCL)
-    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    shutil.copy(harness.ROOT / "BENCHMARK.json", root)
     return root
 
 
@@ -78,6 +59,8 @@ def test_sound_run_is_correct(root, trace):
     assert r["shape"]["plane"] == "torch.float64"
     if trace:
         assert "breakdown" in r and {"busy_s", "window_s"} <= set(r["device"])
+        # the shards' host plan, from the program's phase record on every rank
+        assert r["metrics"]["convert.plan_ms"]["value"] > 0
     else:
         assert set(r["metrics"]) == {"setup_s", "product_ms"}
         assert all(m["value"] > 0 for m in r["metrics"].values())
