@@ -45,11 +45,14 @@ there:
   the program's capture record (:func:`.trace.note_capture`, kept after
   the program is dropped): the static inputs it copies, the graph's nodes by type (:func:`graph_nodes`,
   read from the captured graph), the outputs it clones, the launches the
-  capture enqueued (:func:`launches_between`), and where each call of the
-  solver's operator (its SpMV) lies among the graph's device operations
-  (:class:`_Products`). The profiler is what counts the kernels that ran.
-  Where ``libcuda`` cannot be read, the record holds None there and the
-  solve goes on.
+  capture enqueued (:func:`launches_between`), where each call of the
+  solver's operators (its SpMVs) lies among the graph's device operations
+  (:class:`_Products`, which reads each node of the growing graph once),
+  and the launches each operator's calls enqueued, by launch counter, so
+  a reader knows which operator ran which kernel (iterative refinement:
+  K1 under ``spmv_lo``, K4 under ``spmv_hi``). The profiler is what
+  counts the kernels that ran. Where ``libcuda`` cannot be read, the
+  record holds None there and the solve goes on.
 - **Spans** (:mod:`.trace`, while a profiler records): ``csr5.solve``
   around each call (its mode ``eager``, ``capture`` or ``replay`` and its
   program id) and ``csr5.graph.launch`` around ``graph.replay()``.
@@ -144,28 +147,40 @@ def _libcuda() -> Optional[ctypes.CDLL]:
     return _libcuda_lib or None
 
 
-def _node_types(graph: int, known: Optional[Dict[int, str]] = None) -> Optional[List[str]]:
-    """The type (:data:`NODE_TYPES`) of each node of the ``CUgraph``
-    ``graph``, through ``libcuda``'s ``cuGraphGetNodes`` and
-    ``cuGraphNodeGetType``, or None where ``libcuda`` cannot say. ``known``
-    keeps the types read before, by node."""
-    lib = _libcuda()
-    if lib is None:
-        return None
+def _nodes(lib: ctypes.CDLL, graph: int, start: int = 0) -> Optional[Tuple[int, List[int]]]:
+    """(the number of nodes of the ``CUgraph`` ``graph``, the handles of
+    those from the ``start``-th on), through ``libcuda``'s
+    ``cuGraphGetNodes``, which lists a graph's nodes in the order they were
+    added; None where it returns an error."""
     handle, num = ctypes.c_void_p(graph), ctypes.c_size_t(0)
     if lib.cuGraphGetNodes(handle, None, ctypes.byref(num)):
         return None
+    if num.value <= start:
+        return num.value, []
     nodes = (ctypes.c_void_p * num.value)()
-    if num.value and lib.cuGraphGetNodes(handle, nodes, ctypes.byref(num)):
+    if lib.cuGraphGetNodes(handle, nodes, ctypes.byref(num)):
         return None
-    known = {} if known is None else known
+    return num.value, nodes[start: num.value]
+
+
+def _node_type(lib: ctypes.CDLL, node: int) -> Optional[str]:
+    """A node's type (:data:`NODE_TYPES`) by ``cuGraphNodeGetType``, or None
+    where it returns an error."""
     kind = ctypes.c_int()
-    for node in nodes[: num.value]:
-        if node not in known:
-            if lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
-                return None
-            known[node] = NODE_TYPES.get(kind.value, f"type_{kind.value}")
-    return [known[node] for node in nodes[: num.value]]
+    if lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+        return None
+    return NODE_TYPES.get(kind.value, f"type_{kind.value}")
+
+
+def _node_types(graph: int) -> Optional[List[str]]:
+    """The type of each node of the ``CUgraph`` ``graph``, or None where
+    ``libcuda`` cannot say."""
+    lib = _libcuda()
+    got = None if lib is None else _nodes(lib, graph)
+    if got is None:
+        return None
+    kinds = [_node_type(lib, node) for node in got[1]]
+    return None if None in kinds else kinds
 
 
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> Optional[Dict[str, int]]:
@@ -183,15 +198,26 @@ class _Products:
     argument name, and the kernels each call enqueued (``kernels``). The
     graph holds what every stream of the capture enqueued, a process
     group's stream among them. ``spans`` turns None where ``libcuda``
-    cannot say."""
+    cannot say. ``launches`` holds, by argument name, the launches that
+    the operator's calls enqueued, by launch counter
+    (``cuda_build.launches``), read from the counters and not from the
+    graph.
+
+    Each read of the graph takes the type of the nodes added since the
+    last read only, and keeps running counts, so a capture of c calls over
+    a graph of g nodes reads each node once, not c times. ``cuGraphGetNodes``
+    lists the nodes in the order they were added; each read checks that
+    the last node read before still stands where it stood, and reads the
+    graph whole again where it does not."""
 
     def __init__(self, stream: torch.cuda.Stream):
         self.stream = ctypes.c_void_p(stream.cuda_stream)
-        self.known: Dict[int, str] = {}
         self.spans: Optional[Dict[str, List[Tuple[int, int]]]] = {}
         self.kernels: Dict[str, List[int]] = {}
-        #: the kernels among the device operations of the last read
-        self.seen_kernels = 0
+        self.launches: Dict[str, Dict[str, int]] = {}
+        #: the nodes read so far, the last of them, and the device
+        #: operations and the kernels among them
+        self.read, self.last, self.ops, self.seen_kernels = 0, None, 0, 0
 
     def _ops(self) -> Optional[int]:
         """The device operations captured so far."""
@@ -202,19 +228,35 @@ class _Products:
                                                  ctypes.byref(graph), None, None)
                 or not graph.value):
             return None
-        kinds = _node_types(graph.value, self.known)
-        if kinds is None:
+        skip = 1 if self.read else 0  # the last node read, read again as a check
+        got = _nodes(lib, graph.value, self.read - skip)
+        if got is not None and skip and got[1][:1] != [self.last]:
+            skip = self.read = self.ops = self.seen_kernels = 0  # not grown at its end
+            got = _nodes(lib, graph.value)
+        if got is None:
             return None
-        self.seen_kernels = kinds.count("kernel")
-        return sum(1 for k in kinds if k in DEVICE_OPS)
+        count, nodes = got
+        for node in nodes[skip:]:
+            kind = _node_type(lib, node)
+            if kind is None:
+                return None
+            self.ops += kind in DEVICE_OPS
+            self.seen_kernels += kind == "kernel"
+        if nodes:
+            self.read, self.last = count, nodes[-1]
+        return self.ops
 
     def marked(self, name: str, fn: Callable) -> Callable:
         """``fn``, noting where each of its calls lies under ``name``."""
+        counts = self.launches.setdefault(name, {})
 
         def call(*args, **kwargs):
             first = self._ops() if self.spans is not None else None
             k0 = self.seen_kernels
+            before = read_launches()
             out = fn(*args, **kwargs)
+            for k, n in launches_between(before, read_launches()).items():
+                counts[k] = counts.get(k, 0) + n
             end = self._ops() if first is not None else None
             if end is None:
                 self.spans = None
@@ -445,11 +487,11 @@ def capture(body: Callable, call: Dict[str, Any], inputs: Dict[str, torch.Tensor
         counted = launches_between(before, read_launches())
     nodes = graph_nodes(graph)
     graph.instantiate()
-    placed, fields = products.spans, {}
+    placed, fields = products.spans, {"operator_launches": products.launches}
     if exchange is not None:
         spans = None if placed is None else placed.pop(exchange, None)
-        fields = {"exchange": None if spans is None else spans[0],
-                  "nccl_kernels": None if spans is None else products.kernels[exchange][0]}
+        fields.update(exchange=None if spans is None else spans[0],
+                      nccl_kernels=None if spans is None else products.kernels[exchange][0])
     return _program(body.__name__, loops, graph, inputs, outputs, nodes, counted, placed,
                     (*keep, *reads.read.values()), cloned, **fields)
 

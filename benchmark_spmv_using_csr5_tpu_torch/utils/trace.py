@@ -38,7 +38,9 @@ span site costs that one read and a branch (:func:`recording`).
   kept whether or not anything records, the last :data:`MAX_CAPTURES`,
   whatever a solver's cache drops. Each holds what a replay runs on the
   device, so a reader can attribute a replay's device operations, which
-  no Python sees.
+  no Python sees, and the launches each of the solver's operators
+  enqueued (``operator_launches``), so a solve of two operators (iterative
+  refinement's K1 and K4) can be cut by operator.
 
 Profile any call, then read the spans::
 
@@ -111,9 +113,15 @@ class Capture:
     operator the solver was given (by argument name), where each of its
     calls lies: (first, end) positions among the graph's device
     operations, in the order they run; None where it could not be read.
-    A distributed product's program also places its halo exchange
-    (``exchange``, the same kind of position) and counts the NCCL kernels
-    the exchange enqueued (``nccl_kernels``); None elsewhere."""
+    ``operator_launches`` holds, for each operator by argument name, the
+    launches its calls enqueued, by launch counter (a part of
+    ``launches``): which operator ran which kernel, read from the
+    counters, never from the names (iterative refinement at 4 x 200:
+    ``{"spmv_lo": {"csr5_spmv": 800}, "spmv_hi": {"csr5_spmv_f64": 5}}``);
+    None in a record made without it. A distributed product's program also
+    places its halo exchange (``exchange``, the same kind of position) and
+    counts the NCCL kernels the exchange enqueued (``nccl_kernels``); None
+    elsewhere."""
 
     program: int
     solver: str
@@ -125,6 +133,7 @@ class Capture:
     products: Optional[Dict[str, Tuple[Tuple[int, int], ...]]]
     exchange: Optional[Tuple[int, int]] = None
     nccl_kernels: Optional[int] = None
+    operator_launches: Optional[Dict[str, Dict[str, int]]] = None
 
 
 class Recorder:
